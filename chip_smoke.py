@@ -1,0 +1,585 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Builds the hand-written ``power_step`` kernel from
+``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each entry point
+against its plain PyTorch version on the card, drives the port's main
+path — the batched wave engine, ``TorchBatchSimulator`` — at full width
+(the NPB IS class-C analogue on 64 heterogeneous nodes, 1024 cluster
+bounds, three policies), then a padded mixed-shape batch and the ILP
+policies, and checks the results against the plain version and the
+event simulator's golden makespans.  One JSON line per phase; then a
+``kernels`` line, the card's name and power limit as ``nvidia-smi``
+reports them, and last ``{"ok": true, "device": {...}}``.
+
+Any failed check exits nonzero before that last line, and so does a
+machine without CUDA: nothing here falls back to the CPU or to the plain
+version.  Run from the repository root:
+
+    python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: Kernel-vs-plain tolerance on the card (rtol and atol): the two share
+#: every rounding, so a mismatch is a fault, not float noise.
+TOL = 1e-5
+#: H100 SXM data-sheet peaks used for the bound of each kernel.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------- inputs
+def random_rows(torch, b, n, stacked, gen, device):
+    """Random wave inputs for ``b`` rows of ``n`` lanes on ``device``.
+
+    Tables are built from the port's two LUT presets (8 and 10 states,
+    so S is ragged and +inf padded).  Shared: one heterogeneous cluster
+    for every row.  Stacked: each row draws its lanes' presets and
+    speeds and a real node count, and the lanes past it are phantom
+    (the padding of ``stack_lut_tables``), never running."""
+    from repro_torch.core.power import (_PHANTOM, NodeSpec,
+                                        arndale_like_lut,
+                                        heterogeneous_cluster, lut_table,
+                                        odroid_like_lut)
+    from repro_torch.kernels.power_step import StepTables, step_tables
+
+    f32 = dict(dtype=torch.float32, device=device)
+    if stacked:
+        base = lut_table([NodeSpec(arndale_like_lut()),
+                          NodeSpec(odroid_like_lut())])
+        kind = torch.randint(0, 2, (b, n), generator=gen, device=device)
+        n_act = torch.randint(1, n + 1, (b, 1), generator=gen,
+                              device=device)
+        real = torch.arange(n, device=device)[None, :] < n_act
+
+        def lanes(name, scale=None):
+            t = torch.as_tensor(getattr(base, name), **f32)[kind]
+            if scale is not None:
+                t = t * scale
+            return torch.where(real, t, float(_PHANTOM[name])).contiguous()
+
+        def states(name):
+            t = torch.as_tensor(getattr(base, name), **f32)[kind]
+            t = torch.where(real[..., None], t, float(_PHANTOM[name]))
+            return t.transpose(1, 2).contiguous()          # (B, S, N)
+
+        speed = 1.0 + 0.25 * kind.float() + 0.05 * (
+            2 * torch.rand((b, n), generator=gen, **f32) - 1)
+        tab = StepTables(
+            state_p=states("state_p"), state_f=states("state_f"),
+            idle_w=lanes("idle_w"), f_min=lanes("f_min"),
+            f_nom=lanes("f_nom"), span=lanes("span"),
+            speed=lanes("speed", speed), cap_floor=lanes("cap_floor"),
+            p_max=lanes("p_max"))
+    else:
+        tab = step_tables(lut_table(heterogeneous_cluster(n, seed=n)),
+                          device)
+        real = torch.ones((b, n), dtype=torch.bool, device=device)
+
+    def uni(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, **f32)
+
+    p_hi = float(tab.p_max.max())
+    caps = uni(0.2, 1.2 * p_hi, (b, n))
+    running = ((torch.rand((b, n), generator=gen, **f32) < 0.7)
+               & real).float()
+    remaining = uni(0.0, 50.0, (b, n))
+    rho = uni(0.1, 1.0, (b, n))
+    idle_sum = tab.idle_w.expand(b, n).sum(-1, keepdim=True)
+    pmax_sum = tab.p_max.expand(b, n).sum(-1, keepdim=True)
+    bound = idle_sum + (pmax_sum - idle_sum) * torch.rand(
+        (b, 1), generator=gen, **f32)
+    return tab, (caps, running, remaining, rho, bound)
+
+
+def compare(torch, got, want):
+    """(max abs err, max rel err, all within TOL) over matching tensors."""
+    abs_err = rel_err = 0.0
+    ok = True
+    for g, w in zip(got, want):
+        d = (g - w).abs()
+        abs_err = max(abs_err, float(d.max()))
+        rel_err = max(rel_err, float((d / w.abs().clamp(min=1e-30)).max()))
+        ok = ok and bool((d <= TOL + TOL * w.abs()).all())
+    return abs_err, rel_err, ok
+
+
+def call_ms(torch, fn, reps):
+    """Milliseconds per call of ``fn``, host included (CUDA events over
+    ``reps`` back-to-back calls after a warm-up)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Device milliseconds per call of ``fn``: the summed time of the
+    GPU kernels and copies it ran, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(_self_device_us(e) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(total_us > 0, "the profiler saw no device time")
+    return total_us / 1e3 / reps
+
+
+def _self_device_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    raise SmokeFailure("profiler event without a device time")
+
+
+# ----------------------------------------------------------------- phases
+def phase_kernel(torch, device):
+    """Every entry point vs its plain version on random rows."""
+    from repro_torch.kernels import power_step as ps
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    worst = {"power_step": [0.0, 0.0], "waterfill": [0.0, 0.0]}
+    cases = 0
+    for n in (3, 8, 33, 64, 200):
+        for stacked in (False, True):
+            tab, args = random_rows(torch, 65536, n, stacked, gen, device)
+            for red in (False, True):
+                got = ps.power_step(tab, *args, redistribute=red)
+                want = ps.power_step(tab, *args, redistribute=red,
+                                     impl="plain")
+                a, r, ok = compare(torch, got, want)
+                require(ok, f"power_step N={n} stacked={stacked} "
+                            f"redistribute={red}: kernel vs plain abs "
+                            f"{a:.3g} rel {r:.3g}")
+                worst["power_step"] = [max(worst["power_step"][0], a),
+                                       max(worst["power_step"][1], r)]
+                cases += 1
+            running, budget = args[1], args[4]
+            got = ps.waterfill(tab, running, budget)
+            want = ps.waterfill(tab, running, budget, impl="plain")
+            a, r, ok = compare(torch, (got,), (want,))
+            require(ok, f"waterfill N={n} stacked={stacked}: kernel vs "
+                        f"plain abs {a:.3g} rel {r:.3g}")
+            worst["waterfill"] = [max(worst["waterfill"][0], a),
+                                  max(worst["waterfill"][1], r)]
+            cases += 1
+            del tab, args
+    torch.cuda.synchronize()
+
+    # Times at the main path's shape: B=1024 rows of N=64, shared tables.
+    b, n = 1024, 64
+    tab, args = random_rows(torch, b, n, False, gen, device)
+    s = tab.state_p.shape[0]
+    running, budget = args[1], args[4]
+    calls = {
+        "power_step": lambda: ps.power_step(tab, *args),
+        "power_step_plain": lambda: ps.power_step(tab, *args,
+                                                  impl="plain"),
+        "power_step_redistribute": lambda: ps.power_step(
+            tab, *args, redistribute=True),
+        "power_step_redistribute_plain": lambda: ps.power_step(
+            tab, *args, redistribute=True, impl="plain"),
+        "waterfill": lambda: ps.waterfill(tab, running, budget),
+        "waterfill_plain": lambda: ps.waterfill(tab, running, budget,
+                                                impl="plain"),
+    }
+    # device time is what the card spends; call time adds the host's
+    # dispatch, which bounds a lone launch of a kernel this small
+    times = {}
+    for name, fn in calls.items():
+        reps = 20 if name.endswith("plain") else 200
+        times[f"{name}_ms"] = device_ms(torch, fn, reps)
+        times[f"{name}_call_ms"] = call_ms(torch, fn, reps)
+    # Bounds: each input read once, each output written once; operations
+    # per lane of the translation (a compare and a select per state) and
+    # the rest of the wave (~15), plus ~8 per lane per water-fill pass.
+    table_bytes = 4 * (2 * s * n + 7 * n)
+    step_bytes = 4 * (4 * b * n + b) + table_bytes + 4 * (4 * b * n + 2 * b)
+    step_ops = b * n * (2 * s + 15)
+    fill_bytes = 4 * (b * n + b + 2 * n) + 4 * b * n
+    fill_ops = b * n * 8 * 2
+    bounds = {}
+    for name, nbytes, ops in (("power_step", step_bytes, step_ops),
+                              ("waterfill", fill_bytes, fill_ops)):
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops / FP32_OPS_PER_S
+        bounds[name] = {"bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations", "bytes": nbytes}
+    emit("kernel", cases=cases, rows=65536, tol=TOL,
+         max_abs_err={k: v[0] for k, v in worst.items()},
+         max_rel_err={k: v[1] for k, v in worst.items()},
+         timing_shape=[b, n], **times, bounds=bounds)
+    return worst, times, bounds
+
+
+def _summary(r):
+    """What the comparisons read of a result (picklable)."""
+    return (r.makespan, r.energy_j, r.peak_power_w, r.over_budget_time,
+            frozenset(r.job_ends))
+
+
+def _compare_results(rs_a, rs_b, what):
+    """Per-row makespan / energy / peak / over-budget time within TOL and
+    the same completed jobs; takes results or their summaries."""
+    import math
+
+    worst = 0.0
+    for ra, rb in zip(rs_a, rs_b):
+        sa = ra if isinstance(ra, tuple) else _summary(ra)
+        sb = rb if isinstance(rb, tuple) else _summary(rb)
+        for f, a, b in zip(("makespan", "energy_j", "peak_power_w",
+                            "over_budget_time"), sa, sb):
+            require(math.isfinite(a) and math.isfinite(b),
+                    f"{what}: non-finite {f}")
+            require(abs(a - b) <= TOL * abs(b) + 1e-9,
+                    f"{what}: {f} {a!r} vs {b!r}")
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+        require(sa[4] == sb[4], f"{what}: completed job sets differ")
+    return worst
+
+
+FULL_WIDTH_POLICIES = ("equal-share", "oracle", "heuristic")
+
+
+def _full_width_case():
+    """IS class-C analogue on 64 mixed nodes and its 1024 bounds, and
+    the 32 rows of each policy held against the plain version: spread
+    over every bound, and for the heuristic over the upper half, whose
+    shorter makespans need fewer tick waves."""
+    import numpy as np
+
+    from repro_torch.core.power import (heterogeneous_cluster,
+                                        max_useful_cluster_bound,
+                                        min_feasible_cluster_bound)
+    from repro_torch.core.workloads import is_like
+
+    graph = is_like(64, "C")
+    specs = heterogeneous_cluster(64, seed=0)
+    rows = 1024
+    bounds = np.linspace(1.05 * min_feasible_cluster_bound(specs),
+                         max_useful_cluster_bound(specs), rows)
+    picks = {p: np.linspace(rows // 2 + 7 if p == "heuristic" else 16,
+                            rows - 1, 32).astype(int)
+             for p in FULL_WIDTH_POLICIES}
+    return graph, specs, bounds, picks
+
+
+def _plain_full_width(queue) -> None:
+    """Worker process: the full-width picks under the plain version.  It
+    runs beside the kernel runs (both are host-bound, the card mostly
+    idle) and sends back summaries, or the traceback of its failure."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        from repro_torch import TorchBatchSimulator
+
+        graph, specs, bounds, picks = _full_width_case()
+        out = {}
+        for policy in FULL_WIDTH_POLICIES:
+            t0 = time.perf_counter()
+            res = TorchBatchSimulator(graph, specs, bounds[picks[policy]],
+                                      policy, dt=0.05, latency_s=0.05,
+                                      impl="plain").run()
+            out[policy] = (time.perf_counter() - t0,
+                           [_summary(r) for r in res])
+        queue.put(("ok", out))
+    except Exception:     # reported to the parent, which fails the run
+        queue.put(("error", traceback.format_exc()))
+
+
+def phase_full_width(torch, launches):
+    """The main path at full width: 1024 bounds x IS class C, N=64;
+    returns the launch counts of this phase's kernel runs."""
+    import multiprocessing as mp
+
+    from repro_torch import TorchBatchSimulator
+    from repro_torch.core.arrays import build_graph_arrays
+
+    graph, specs, bounds, picks = _full_width_case()
+    ga = build_graph_arrays(graph, specs)
+    dims = [ga.n_nodes, ga.n_jobs, ga.node_seq.shape[1],
+            ga.deps_pad.shape[1], ga.table.state_p.shape[1]]
+    require(dims == [64, 1088, 18, 64, 10], f"IS class-C dims {dims}")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    worker = ctx.Process(target=_plain_full_width, args=(queue,))
+    worker.start()
+    try:
+        for key in launches:
+            launches[key] = 0
+        runs = {}
+        for policy in FULL_WIDTH_POLICIES:
+            before = dict(launches)
+            t0 = time.perf_counter()
+            sim = TorchBatchSimulator(graph, specs, bounds, policy,
+                                      dt=0.05, latency_s=0.05)
+            res = sim.run()
+            runs[policy] = (time.perf_counter() - t0, sim.stats, res)
+            waves = sim.stats.waves
+            require(all(len(r.job_ends) == ga.n_jobs for r in res),
+                    f"{policy}: a row did not complete every job")
+            got = launches["power_step"] - before["power_step"]
+            require(got == waves, f"{policy}: power_step launches {got} "
+                                  f"!= waves {waves}")
+            if policy == "heuristic":
+                require(launches["waterfill"] - before["waterfill"]
+                        == waves,
+                        "heuristic: one waterfill launch per wave expected")
+            if policy == "equal-share":
+                require(all(r.peak_power_w <= b * (1 + 1e-5)
+                            for r, b in zip(res, bounds)),
+                        "equal-share peak above its bound")
+        main_launches = dict(launches)
+        status, plain = queue.get(timeout=1800)
+        worker.join(timeout=60)
+    finally:
+        if worker.is_alive():
+            worker.terminate()
+            worker.join()
+    require(status == "ok", f"plain full-width worker failed:\n{plain}")
+    for policy in FULL_WIDTH_POLICIES:
+        wall, (waves, syncs), res = runs[policy]
+        plain_wall, plain_rows = plain[policy]
+        rel = _compare_results([res[i] for i in picks[policy]], plain_rows,
+                               f"full-width {policy} kernel vs plain")
+        mk = [r.makespan for r in res]
+        emit("full_width", policy=policy, rows=len(res), dims=dims,
+             bound_w=[float(bounds[0]), float(bounds[-1])],
+             wall_s=wall, waves=waves, host_syncs=syncs,
+             rows_per_s=len(res) / wall, makespan_s=[min(mk), max(mk)],
+             max_rel_vs_plain=rel, plain_rows=len(plain_rows),
+             plain_wall_s=plain_wall)
+    return main_launches
+
+
+def phase_profile(torch):
+    """Where a full-width wave's time goes: the equal-share run again
+    under ``torch.profiler``; device time over wall time is the share of
+    the run the card was busy (the profiler's own cost is in the wall)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import TorchBatchSimulator
+    from repro_torch.core.power import (heterogeneous_cluster,
+                                        max_useful_cluster_bound,
+                                        min_feasible_cluster_bound)
+    from repro_torch.core.workloads import is_like
+
+    graph = is_like(64, "C")
+    specs = heterogeneous_cluster(64, seed=0)
+    bounds = np.linspace(1.05 * min_feasible_cluster_bound(specs),
+                         max_useful_cluster_bound(specs), 1024)
+    sim = TorchBatchSimulator(graph, specs, bounds, "equal-share")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(_self_device_us(e) for e in rows) / 1e6
+    top = sorted(rows, key=_self_device_us, reverse=True)[:5]
+    emit("profile", policy="equal-share", rows=1024, waves=sim.stats.waves,
+         wall_s=wall, device_s=device_s, device_busy_share=device_s / wall,
+         device_ms_per_wave=1e3 * device_s / sim.stats.waves,
+         wall_ms_per_wave=1e3 * wall / sim.stats.waves,
+         device_launches=sum(e.count for e in rows),
+         top_device_ms={e.key[:60]: _self_device_us(e) / 1e3 for e in top})
+
+
+def phase_padded(torch, launches):
+    """The six mixed-family members x 3 bound fractions, one stacked
+    batch per policy, with their relative bound steps."""
+    from repro_torch import TorchBatchSimulator
+    from repro_torch.core.ilp import solve_paper_ilp
+    from repro_torch.core.power import (max_useful_cluster_bound,
+                                        min_feasible_cluster_bound)
+    from repro_torch.core.workloads import mixed_members
+
+    items, bounds, scheds = [], [], []
+    for _name, graph, specs, steps in mixed_members(seed=0):
+        lo = min_feasible_cluster_bound(specs)
+        hi = max_useful_cluster_bound(specs)
+        for frac in (0.15, 0.4, 0.8):
+            bound = lo + frac * (hi - lo)
+            items.append((graph, specs))
+            bounds.append(bound)
+            scheds.append(tuple((t, f * bound) for t, f in steps))
+    # a 5 s cap per solve keeps the slowest members' MILPs short: the
+    # kernel and plain runs then share whatever assignment it returns
+    assignments = [solve_paper_ilp(g, sp, b, time_limit=5.0)
+                   for (g, sp), b in zip(items, bounds)]
+    for policy in ("equal-share", "oracle", "heuristic", "ilp"):
+        kw = {"assignments": assignments} if policy == "ilp" else {}
+        before = launches["power_step"]
+        t0 = time.perf_counter()
+        sim = TorchBatchSimulator.padded(items, bounds, policy,
+                                         bound_schedules=scheds, **kw)
+        res = sim.run()
+        wall = time.perf_counter() - t0
+        require(launches["power_step"] - before == sim.stats.waves,
+                f"padded {policy}: one power_step launch per wave expected")
+        plain = TorchBatchSimulator.padded(items, bounds, policy,
+                                           bound_schedules=scheds,
+                                           impl="plain", **kw).run()
+        rel = _compare_results(res, plain,
+                               f"padded {policy} kernel vs plain")
+        require(all(len(r.job_ends) == len(g.jobs)
+                    for r, (g, _) in zip(res, items)),
+                f"padded {policy}: a row did not complete")
+        emit("padded", policy=policy, rows=len(res), wall_s=wall,
+             waves=sim.stats.waves, host_syncs=sim.stats.host_syncs,
+             max_rel_vs_plain=rel)
+
+
+def phase_ilp(torch):
+    """Listing 2 on three nodes: ILP policies over 16 bounds vs plain,
+    and equal-share / oracle vs the event simulator's golden makespans."""
+    import numpy as np
+
+    from repro_torch import TorchBatchSimulator
+    from repro_torch.core.ilp import build_makespan_milp, solve_paper_ilp
+    from repro_torch.core.power import (homogeneous_cluster,
+                                        max_useful_cluster_bound,
+                                        min_feasible_cluster_bound)
+    from repro_torch.core.workloads import listing2_graph
+
+    graph, specs = listing2_graph(), homogeneous_cluster(3)
+    lo = min_feasible_cluster_bound(specs)
+    hi = max_useful_cluster_bound(specs)
+    bounds = np.linspace(1.05 * lo, hi, 16)
+    for policy, solver in (("ilp", solve_paper_ilp),
+                           ("ilp-makespan", build_makespan_milp)):
+        assignments = [solver(graph, specs, b) for b in bounds]
+        res = TorchBatchSimulator(graph, specs, bounds, policy,
+                                  assignments=assignments).run()
+        plain = TorchBatchSimulator(graph, specs, bounds, policy,
+                                    assignments=assignments,
+                                    impl="plain").run()
+        rel = _compare_results(res, plain, f"listing2 {policy}")
+        emit("ilp", policy=policy, rows=len(res), max_rel_vs_plain=rel,
+             makespan_s=[r.makespan for r in res])
+    # The solver-free exact policies against the event simulator's
+    # golden makespans; the ILP's golden depends on the HiGHS build that
+    # solved it (another scipy picks another optimal assignment).
+    golden = json.loads((ROOT / "tests" / "golden" / "listing2.json")
+                        .read_text())["makespans"]
+    worst = 0.0
+    for policy in ("equal-share", "oracle"):
+        gb = sorted(golden, key=float)
+        res = TorchBatchSimulator(graph, specs, [float(b) for b in gb],
+                                  policy).run()
+        for r, b in zip(res, gb):
+            want = golden[b][policy]
+            err = abs(r.makespan - want) / want
+            require(err <= TOL, f"listing2 {policy} at {b} W: makespan "
+                                f"{r.makespan} vs golden {want}")
+            worst = max(worst, err)
+    emit("golden", workload="listing2 on homogeneous_cluster(3)",
+         policies=["equal-share", "oracle"],
+         max_rel_vs_event_simulator=worst)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing runs on the CPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import power_step as ps
+    from repro_torch.kernels._build import load_library
+
+    device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    kl = load_library()
+    emit("build", seconds=time.perf_counter() - t0, nvcc_s=kl.build_s,
+         library=str(kl.path.relative_to(ROOT)),
+         ptxas=[ln.strip() for ln in kl.log.splitlines()
+                if "registers" in ln or "spill" in ln])
+
+    worst, times, bounds = phase_kernel(torch, device)
+    main_launches = phase_full_width(torch, ps.LAUNCHES)
+    phase_profile(torch)
+    phase_padded(torch, ps.LAUNCHES)
+    phase_ilp(torch)
+
+    src = "src/repro_torch/kernels/csrc/power_step.cu"
+    kernels = [
+        {"name": "power_step", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/power_step.py:195",
+         "launches": main_launches["power_step"],
+         "max_abs_err": worst["power_step"][0],
+         "ms": times["power_step_ms"],
+         "plain_ms": times["power_step_plain_ms"],
+         "call_ms": times["power_step_call_ms"],
+         "ms_redistribute": times["power_step_redistribute_ms"],
+         "plain_ms_redistribute": times["power_step_redistribute_plain_ms"],
+         **{k: bounds["power_step"][k] for k in ("bound_ms", "bound_by")},
+         "library_ms": None},
+        {"name": "waterfill", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/power_step.py:134",
+         "launches": main_launches["waterfill"],
+         "max_abs_err": worst["waterfill"][0],
+         "ms": times["waterfill_ms"], "plain_ms": times["waterfill_plain_ms"],
+         "call_ms": times["waterfill_call_ms"],
+         **{k: bounds["waterfill"][k] for k in ("bound_ms", "bound_by")},
+         "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,488 @@
+"""Wave-advancement engine: every scenario row of a batch in lockstep.
+
+The reference engine (``repro.backends.jax.engine``) writes the wave
+loop for one row and ``vmap``s a data-dependent ``while_loop`` over the
+rows.  PyTorch cannot map such a loop, so this engine steps all B rows
+together as ``(B, N)`` lane tensors and ``(B, J+1)`` job tensors, the
+layout of the reference's numpy batch simulator.  Each row keeps its own
+clock and advances by its own ``delta``; a row that is done, stalled or
+out of steps is frozen by a mask and changes nothing.
+
+Two batch layouts share the loop:
+
+* **shared** (the constructor): one graph and cluster, B bounds — the
+  geometry is expanded over the rows without copying;
+* **stacked** (:meth:`TorchBatchSimulator.padded`): B different (graph,
+  cluster) rows padded to one envelope (phantom job slots born complete,
+  phantom lanes with zero idle draw; see :mod:`repro_torch.core.arrays`).
+
+One loop iteration does, for every row, one step of the settle fixed
+point (start ready jobs, then complete zero-work ones) and then, on the
+rows that are settled, one wave: policy caps, the fused
+:func:`~repro_torch.kernels.power_step.power_step` (one kernel launch for
+the whole batch), the earliest of completion / policy tick / bound
+arrival, energy / peak / over-budget accounting, completions and the
+policy tick.  A row is settled when its step completed no zero-work job:
+starting jobs cannot make another lane ready, and the step's completion
+pass leaves no running lane without work, so a step that completed
+nothing reached the fixed point.  A row that completed something takes
+another step in the next iteration before it waves, exactly as the
+reference's settle loop runs its body again; each row therefore walks
+the reference's sequence of waves, and the settle loop needs no host
+sync.  The host syncs only to test whether any row is still live, every
+``check_every`` iterations; later iterations on finished rows change
+nothing, so the results do not depend on ``check_every``.
+
+Numerics: float32 throughout, like the reference.  Job completion is
+decided by time (``t_fin <= delta``), never by a residual-work epsilon.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.arrays import (build_graph_arrays,
+                                     pad_bound_schedules,
+                                     stack_graph_arrays,
+                                     validate_padded_items)
+from repro_torch.core.graph import JobDependencyGraph
+from repro_torch.core.power import NodeSpec
+from repro_torch.core.results import OVER_BUDGET_RTOL, SimResult
+from repro_torch.kernels.power_step import (BIG_TIME, StepTables,
+                                            power_step, resolve_impl,
+                                            step_tables)
+
+from .policies import TorchPolicy, current_jobs, get_torch_policy
+
+#: Anything above this is "no event" (see power_step's BIG_TIME).
+_BIG_CUT = BIG_TIME * 0.5
+
+FLOAT = torch.float32
+
+
+class Ctx(NamedTuple):
+    """The batch's geometry on the device, every leaf with a leading row
+    axis B (expanded without copying in the shared layout)."""
+
+    tab: StepTables
+    node_seq: torch.Tensor    # (B, N, K) int64
+    deps_pad: torch.Tensor    # (B, J+1, D) int64
+    work_pad: torch.Tensor    # (B, J+1)
+    rho_pad: torch.Tensor     # (B, J+1)
+    n_active: torch.Tensor    # (B,) int64 real node count
+    dt: torch.Tensor          # () policy tick
+    impl: str                 # power_step implementation ("plain"/"cuda")
+
+
+@dataclass
+class State:
+    """The batch's loop state, updated in place."""
+
+    ptr: torch.Tensor         # (B, N) int64 current-job pointer
+    running: torch.Tensor     # (B, N) bool
+    remaining: torch.Tensor   # (B, N)
+    completed: torch.Tensor   # (B, J+1) bool, sentinel slot always True
+    row_t: torch.Tensor       # (B,)
+    bound: torch.Tensor       # (B,) current bound (schedules update it)
+    sched_idx: torch.Tensor   # (B,) int64 next bound-schedule entry
+    done: torch.Tensor        # (B,) bool
+    stalled: torch.Tensor     # (B,) bool (deadlock flag)
+    settled: torch.Tensor     # (B,) bool: at the settle fixed point
+    energy: torch.Tensor      # (B,)
+    peak: torch.Tensor        # (B,)
+    over_t: torch.Tensor      # (B,)
+    makespan: torch.Tensor    # (B,)
+    start_t: torch.Tensor     # (B, J+1) NaN until started, slot J junk
+    end_t: torch.Tensor       # (B, J+1) NaN until completed, slot J junk
+    tick_count: torch.Tensor  # (B,) int64
+    steps: torch.Tensor       # (B,) int64 waves taken
+
+
+class RunStats(NamedTuple):
+    """What the last :meth:`TorchBatchSimulator.run` cost the host."""
+
+    waves: int          # loop iterations = power_step calls
+    host_syncs: int     # liveness checks + the final fetch
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card: it raises when CUDA is missing rather
+    than running on the CPU.  Pass ``device="cpu"`` for the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                               "the engine on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# ------------------------------------------------------------ state ops
+# ``cur`` is each lane's current job slot (current_jobs), computed once
+# per settle step and once per wave: starting jobs does not move it.
+def _ready_mask(ctx: Ctx, st: State, cur: torch.Tensor) -> torch.Tensor:
+    """Lanes whose current job can start: not running, a real job, every
+    dependency complete.  A done row's lanes all sit on the sentinel, and
+    a stalled row has nothing ready, so neither starts anything."""
+    b, n = cur.shape
+    j = ctx.work_pad.shape[1] - 1
+    d = ctx.deps_pad.shape[2]
+    deps = ctx.deps_pad.gather(1, cur.unsqueeze(-1).expand(b, n, d))
+    deps_ok = st.completed.gather(1, deps.reshape(b, n * d)) \
+        .view(b, n, d).all(dim=-1)
+    return ~st.running & (cur < j) & deps_ok
+
+
+def _start(ctx: Ctx, st: State, mask: torch.Tensor, cur: torch.Tensor):
+    j = ctx.work_pad.shape[1] - 1
+    tgt = torch.where(mask, cur, j)      # masked-off lanes hit the junk slot
+    st.running |= mask
+    st.remaining = torch.where(mask, ctx.work_pad.gather(1, cur),
+                               st.remaining)
+    st.start_t.scatter_(1, tgt, st.row_t.unsqueeze(-1).expand_as(tgt))
+
+
+def _complete(ctx: Ctx, st: State, mask: torch.Tensor, cur: torch.Tensor):
+    j = ctx.work_pad.shape[1] - 1
+    tgt = torch.where(mask, cur, j)
+    st.completed.scatter_(1, tgt, True)
+    all_done = st.completed[:, :j].all(dim=-1)
+    st.end_t.scatter_(1, tgt, st.row_t.unsqueeze(-1).expand_as(tgt))
+    st.ptr += mask
+    st.running &= ~mask
+    st.makespan = torch.where(all_done & ~st.done, st.row_t, st.makespan)
+    st.done |= all_done
+
+
+def _settle_step(ctx: Ctx, st: State) -> None:
+    """One pass of the settle fixed point on every row: start the ready
+    jobs, then complete the running jobs with no work left."""
+    cur = current_jobs(ctx, st)
+    _start(ctx, st, _ready_mask(ctx, st, cur), cur)
+    instant = st.running & (st.remaining <= 0.0)
+    _complete(ctx, st, instant, cur)
+    st.settled = ~instant.any(dim=-1)
+
+
+class TorchBatchSimulator:
+    """Batched wave simulator on one device, B scenario rows at once.
+
+    The constructor's fixed-structure batch (one graph, one cluster, B
+    bounds, one policy) and :meth:`padded`'s mixed-shape stacked batch,
+    with ``policy`` a key of the torch-policy registry
+    (:mod:`repro_torch.backends.policies`) or an instance.
+    ``bound_schedules`` (one ``(time_s, bound_w)`` iterable per row)
+    makes the rows' bounds time-varying, resolved at exact arrival
+    times.  ``device=None`` runs on the card and raises without one;
+    ``impl`` picks the power-step implementation (``None``: the CUDA
+    kernel on the card, the plain version on the CPU; ``"plain"`` forces
+    the plain version).  ``check_every`` is the number of loop
+    iterations between the host's checks for live rows.
+    """
+
+    def __init__(self, graph: JobDependencyGraph, specs: Sequence[NodeSpec],
+                 bounds: Sequence[float],
+                 policy: Union[str, TorchPolicy] = "equal-share",
+                 dt: float = 0.05, latency_s: float = 0.05,
+                 max_steps: int = 1_000_000,
+                 bound_schedules: Optional[Sequence] = None,
+                 device=None, impl: Optional[str] = None,
+                 check_every: int = 64, **policy_kwargs):
+        graph.topological_order()          # validates the DAG
+        if len(specs) != len(graph.nodes):
+            raise ValueError("one NodeSpec per graph node required")
+        self.graph = graph
+        self.specs = list(specs)
+        self._setup_run_params(bounds, policy, dt, latency_s, max_steps,
+                               bound_schedules, device, impl, check_every,
+                               policy_kwargs)
+        b = self.n_rows
+        arrays = build_graph_arrays(graph, self.specs)
+        self._init_rows(
+            arrays, stacked=False,
+            row_graphs=[graph] * b, row_specs=[self.specs] * b,
+            row_job_ids=(tuple(arrays.job_ids),) * b,
+            n_jobs_row=np.full(b, arrays.n_jobs),
+            n_active=np.full(b, arrays.n_nodes))
+
+    @classmethod
+    def padded(cls, items: Sequence[Tuple[JobDependencyGraph,
+                                          Sequence[NodeSpec]]],
+               bounds: Sequence[float],
+               policy: Union[str, TorchPolicy] = "equal-share",
+               dt: float = 0.05, latency_s: float = 0.05,
+               max_steps: int = 1_000_000,
+               bound_schedules: Optional[Sequence] = None,
+               pad_dims: Optional[Tuple[int, int, int, int, int]] = None,
+               device=None, impl: Optional[str] = None,
+               check_every: int = 64,
+               **policy_kwargs) -> "TorchBatchSimulator":
+        """A mixed-shape batch: row ``b`` runs ``items[b]`` under
+        ``bounds[b]``; ``pad_dims`` is the ``(N, J, K, D, S)`` envelope
+        (tight maxima when omitted)."""
+        self = cls.__new__(cls)
+        items, bounds = validate_padded_items(items, bounds)
+        self.graph = None
+        self.specs = None
+        self._setup_run_params(bounds, policy, dt, latency_s, max_steps,
+                               bound_schedules, device, impl, check_every,
+                               policy_kwargs)
+        arrays = stack_graph_arrays(items, pad_dims)
+        self._init_rows(
+            arrays, stacked=True,
+            row_graphs=[g for g, _ in items],
+            row_specs=[list(sp) for _, sp in items],
+            row_job_ids=arrays.row_job_ids,
+            n_jobs_row=arrays.n_jobs_row, n_active=arrays.n_active)
+        return self
+
+    # ------------------------------------------------------- construction
+    def _init_rows(self, arrays, *, stacked, row_graphs, row_specs,
+                   row_job_ids, n_jobs_row, n_active) -> None:
+        self.arrays = arrays
+        self.stacked = stacked
+        self.row_graphs = row_graphs
+        self.row_specs = row_specs
+        self.row_job_ids = row_job_ids
+        self.n_jobs_row = np.asarray(n_jobs_row)
+        self.n_active = np.asarray(n_active)
+        self.n_jobs_total = arrays.n_jobs
+
+    def _setup_run_params(self, bounds, policy, dt, latency_s, max_steps,
+                          bound_schedules, device, impl, check_every,
+                          policy_kwargs) -> None:
+        if dt <= 0:
+            raise ValueError("dt must be positive")
+        if check_every < 1:
+            raise ValueError("check_every must be >= 1")
+        self.bounds = np.asarray(list(bounds), dtype=float)
+        if self.bounds.ndim != 1 or len(self.bounds) == 0:
+            raise ValueError("bounds must be a non-empty 1-D sequence")
+        self.dt = float(dt)
+        self.latency_s = float(latency_s)
+        self.max_steps = int(max_steps)
+        self.device = resolve_device(device)
+        self.impl = resolve_impl(impl, torch.empty(0, device=self.device))
+        self.check_every = int(check_every)
+        self._sched = pad_bound_schedules(bound_schedules, len(self.bounds))
+        if isinstance(policy, TorchPolicy):
+            if policy_kwargs:
+                raise ValueError("policy_kwargs only apply to registry "
+                                 "keys")
+            self.policy = policy
+        else:
+            self.policy = get_torch_policy(policy, **policy_kwargs)
+        self.stats: Optional[RunStats] = None
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.bounds)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.arrays.n_nodes
+
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device) \
+            .to(dtype).contiguous()
+
+    def _ctx(self) -> Ctx:
+        a = self.arrays
+        b = self.n_rows
+
+        def rows(x, dtype):
+            t = self._tensor(x, dtype)
+            return t if self.stacked else t.unsqueeze(0).expand(
+                b, *t.shape)
+
+        return Ctx(tab=step_tables(a.table, self.device, FLOAT),
+                   node_seq=rows(a.node_seq, torch.int64),
+                   deps_pad=rows(a.deps_pad, torch.int64),
+                   work_pad=rows(a.work_pad, FLOAT),
+                   rho_pad=rows(a.rho_pad, FLOAT),
+                   n_active=self._tensor(self.n_active, torch.int64),
+                   dt=torch.tensor(self.dt, dtype=FLOAT,
+                                   device=self.device),
+                   impl=self.impl)
+
+    def _state0(self) -> State:
+        b, n, j = self.n_rows, self.n_nodes, self.n_jobs_total
+        dev = self.device
+        completed = np.zeros((b, j + 1), dtype=bool)
+        completed[:, j] = True
+        # phantom job slots of a padded row are born completed
+        completed[:, :j] |= np.arange(j)[None, :] >= self.n_jobs_row[:, None]
+
+        def zeros(dtype=FLOAT):
+            return torch.zeros(b, dtype=dtype, device=dev)
+
+        return State(
+            ptr=torch.zeros(b, n, dtype=torch.int64, device=dev),
+            running=torch.zeros(b, n, dtype=torch.bool, device=dev),
+            remaining=torch.zeros(b, n, dtype=FLOAT, device=dev),
+            completed=self._tensor(completed, torch.bool),
+            row_t=zeros(), bound=self._tensor(self.bounds, FLOAT),
+            sched_idx=zeros(torch.int64), done=zeros(torch.bool),
+            stalled=zeros(torch.bool), settled=zeros(torch.bool),
+            energy=zeros(), peak=zeros(), over_t=zeros(),
+            makespan=zeros(),
+            start_t=torch.full((b, j + 1), math.nan, dtype=FLOAT,
+                               device=dev),
+            end_t=torch.full((b, j + 1), math.nan, dtype=FLOAT, device=dev),
+            tick_count=zeros(torch.int64), steps=zeros(torch.int64))
+
+    # ------------------------------------------------------------- the loop
+    def _wave(self, ctx: Ctx, st: State, pol, sched_t, sched_w):
+        """One wave on the rows that are live and settled."""
+        cls = self.policy
+        act = ~(st.done | st.stalled) & (st.steps < self.max_steps) \
+            & st.settled
+        caps = cls.caps_fn(ctx, st, pol).contiguous()
+        cur = current_jobs(ctx, st)
+        rho = ctx.rho_pad.gather(1, cur)
+        rate, _, t_fin, _, p_cl, t_cm = power_step(
+            ctx.tab, caps, st.running.to(FLOAT), st.remaining, rho,
+            st.bound.unsqueeze(-1), redistribute=cls.redistribute,
+            impl=ctx.impl)
+        p_cluster, t_comp = p_cl.squeeze(-1), t_cm.squeeze(-1)
+        big = torch.full_like(t_comp, BIG_TIME)
+
+        if cls.wants_ticks:
+            ticks = (st.tick_count + 1).to(FLOAT)
+            next_tick = ticks * ctx.dt
+            # One rounding for (k+1)*dt - row_t, a fused multiply-add, as
+            # the reference's compiled loop evaluates it (exact in float64,
+            # then rounded): rounding the product first drifts energy
+            # past 1e-5 of the reference over thousands of tick waves.
+            t_tick = (ticks.double() * ctx.dt.double()
+                      - st.row_t.double()).to(FLOAT)
+        else:
+            next_tick = t_tick = big
+        # next scheduled bound arrival (padded with BIG_TIME; sched_live
+        # guards re-reading a consumed final entry)
+        t_cols = sched_t.shape[1]
+        idx_c = st.sched_idx.clamp(max=t_cols - 1).unsqueeze(-1)
+        sched_live = st.sched_idx < t_cols
+        next_bound_t = sched_t.gather(1, idx_c).squeeze(-1)
+        t_bound = torch.where(sched_live, next_bound_t - st.row_t, big)
+        delta = torch.minimum(torch.minimum(t_comp, t_tick), t_bound)
+        # Deadlock is judged on t_comp, not delta: a row with no running
+        # lane can never recover (ticks and bound arrivals start nothing).
+        stalled_now = (t_comp >= _BIG_CUT) & act
+        # A frozen row (and a stalling one) advances by exactly 0: adding
+        # 0 leaves its clock, remaining work and energy as they were.
+        delta = torch.where(act & ~stalled_now, delta, 0.0)
+        # over-budget uses the bound in effect *during* the wave
+        over = p_cluster > st.bound * (1 + OVER_BUDGET_RTOL) + 1e-9
+        finishing = st.running & act.unsqueeze(-1) & \
+            (t_fin <= delta.unsqueeze(-1) * (1 + 1e-6) + 1e-9)
+        row_t = st.row_t + delta
+        if cls.wants_ticks:
+            due = (t_tick <= t_comp) & (t_tick <= t_bound) & ~stalled_now \
+                & act
+            row_t = torch.where(due, next_tick, row_t)   # kill float residue
+        bound_due = sched_live & (t_bound <= t_comp) & (t_bound <= t_tick) \
+            & ~stalled_now & act
+        row_t = torch.where(bound_due, next_bound_t, row_t)
+
+        st.remaining = torch.where(finishing, 0.0,
+                                   st.remaining - rate * delta.unsqueeze(-1))
+        st.row_t = row_t
+        st.bound = torch.where(bound_due,
+                               sched_w.gather(1, idx_c).squeeze(-1),
+                               st.bound)
+        st.sched_idx += bound_due
+        st.energy = st.energy + p_cluster * delta
+        st.peak = torch.where(act, torch.maximum(st.peak, p_cluster),
+                              st.peak)
+        st.over_t = st.over_t + torch.where(over, delta, 0.0)
+        st.stalled |= stalled_now
+        st.steps += act
+        _complete(ctx, st, finishing, cur)
+        if cls.wants_ticks:
+            pol = cls.tick_fn(ctx, st, pol, due)
+            st.tick_count += due
+        return pol
+
+    def _live(self, st: State) -> torch.Tensor:
+        return ((~st.done & ~st.stalled & (st.steps < self.max_steps))
+                | ~st.settled).any()
+
+    def run(self) -> List[SimResult]:
+        """Run the batch to the end of every row; one result per row."""
+        pol = {k: self._tensor(v, torch.bool if np.asarray(v).dtype == bool
+                               else FLOAT)
+               for k, v in self.policy.init_state(self).items()}
+        ctx = self._ctx()
+        st = self._state0()
+        if self._sched is not None:
+            sched_t, sched_w = (self._tensor(x, FLOAT) for x in self._sched)
+        else:
+            sched_t = torch.full((self.n_rows, 1), BIG_TIME, dtype=FLOAT,
+                                 device=self.device)
+            sched_w = torch.zeros_like(sched_t)
+        waves = syncs = 0
+        while True:
+            _settle_step(ctx, st)
+            pol = self._wave(ctx, st, pol, sched_t, sched_w)
+            waves += 1
+            if waves % self.check_every == 0:
+                syncs += 1
+                if not bool(self._live(st)):
+                    break
+        out = {k: getattr(st, k).cpu().numpy()
+               for k in ("makespan", "energy", "peak", "over_t", "start_t",
+                         "end_t", "completed", "done", "stalled", "steps")}
+        self.stats = RunStats(waves=waves, host_syncs=syncs + 1)
+        self._check_failures(out)
+        return self._results(out)
+
+    def _check_failures(self, out: Dict[str, np.ndarray]) -> None:
+        if out["stalled"].any():
+            bad = int(np.nonzero(out["stalled"])[0][0])
+            jids = self.row_job_ids[bad]
+            missing = [jids[k] for k in range(int(self.n_jobs_row[bad]))
+                       if not out["completed"][bad, k]]
+            raise RuntimeError(f"deadlock in batch row {bad}: jobs "
+                               f"never ran: {sorted(missing)[:8]}")
+        hung = ~out["done"] & (out["steps"] >= self.max_steps)
+        if hung.any():
+            raise RuntimeError(f"torch batch simulator exceeded max steps "
+                               f"({self.max_steps}); livelock?")
+
+    def _results(self, out: Dict[str, np.ndarray]) -> List[SimResult]:
+        name = self.policy.name
+        results: List[SimResult] = []
+        for row in range(self.n_rows):
+            job_ids = self.row_job_ids[row]
+            makespan = float(out["makespan"][row])
+            starts = {jid: float(out["start_t"][row, k])
+                      for k, jid in enumerate(job_ids)
+                      if not math.isnan(out["start_t"][row, k])}
+            ends = {jid: float(out["end_t"][row, k])
+                    for k, jid in enumerate(job_ids)
+                    if not math.isnan(out["end_t"][row, k])}
+            energy = float(out["energy"][row])
+            results.append(SimResult(
+                policy=name, makespan=makespan, energy_j=energy,
+                avg_power_w=energy / makespan if makespan > 0 else 0.0,
+                peak_power_w=float(out["peak"][row]),
+                over_budget_time=float(out["over_t"][row]),
+                messages=0, distributes=0, suppressed_reports=0,
+                power_trace=[], job_starts=starts, job_ends=ends))
+        return results
+
+
+def simulate_batch_torch(graph: JobDependencyGraph,
+                         specs: Sequence[NodeSpec],
+                         bounds: Sequence[float],
+                         policy: Union[str, TorchPolicy] = "equal-share",
+                         dt: float = 0.05, latency_s: float = 0.05,
+                         **kwargs) -> List[SimResult]:
+    """One-call facade: one :class:`SimResult` per entry of ``bounds``."""
+    return TorchBatchSimulator(graph, specs, bounds, policy=policy, dt=dt,
+                               latency_s=latency_s, **kwargs).run()

@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels (nvcc + ctypes).
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, on first use, into
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``).  The library's file name carries a hash of the source
+and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as built.  Nothing here runs at import time: this module is
+imported on machines with no CUDA toolkit, where only the plain PyTorch
+versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("power_step.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+#: ``--fmad=false`` keeps every multiply and add rounding on its own (no
+#: FMA contraction), and the absence of ``--use_fast_math`` keeps IEEE
+#: division: the kernels then round exactly as their plain versions.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+class KernelLibrary(NamedTuple):
+    """The loaded library and how it was obtained."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_s: float      # nvcc wall seconds (0.0 when loaded as built)
+    log: str            # nvcc/ptxas output of this process's build
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built on this machine")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.repro_power_step.argtypes = [_P] * 20 + [_I, _I, _I, _LL, _LL, _I, _P]
+    lib.repro_power_step.restype = _I
+    lib.repro_waterfill.argtypes = [_P] * 5 + [_I, _I, _LL, _P]
+    lib.repro_waterfill.restype = _I
+    lib.repro_cuda_error_string.argtypes = [_I]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process."""
+    path = BUILD_DIR / f"libreprotorch-{_digest()}.so"
+    build_s, log = 0.0, ""
+    if not path.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(_CSRC / name) for name in _SOURCES)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_s = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)        # atomic: concurrent builders agree
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return KernelLibrary(lib=lib, path=path, build_s=build_s, log=log)
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = load_library().lib.repro_cuda_error_string(code)
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                           f"{code} ({msg.decode() if msg else '?'})")

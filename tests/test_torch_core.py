@@ -1,0 +1,229 @@
+"""The port's own copies of the reference's numpy modules match it.
+
+Same seed, same graphs and LUTs; the geometry builders give equal
+arrays; the ILP gives the same assignments; ``convert.from_reference``
+carries objects across faithfully.  Also: no module of ``repro_torch``,
+and not ``chip_smoke.py``, imports ``jax`` or anything of ``repro``;
+``chip_smoke.py`` fails without a GPU and outside the repository.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.core import batchsim as ref_bs
+from repro.core import ilp as ref_ilp
+from repro.core import power as ref_power
+from repro.core import workloads as ref_wl
+from repro.core.scenarios import mixed_family
+
+from repro_torch.convert import from_reference
+from repro_torch.core import arrays as port_arrays
+from repro_torch.core import ilp as port_ilp
+from repro_torch.core import power as port_power
+from repro_torch.core import workloads as port_wl
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def graph_key(g):
+    return sorted((j.node, j.index, j.work, j.cpu_frac, tuple(j.deps), j.tag)
+                  for j in g.jobs.values())
+
+
+def spec_key(s):
+    lut = s.lut
+    states = lambda ss: tuple((x.freq_mhz, x.power_w) for x in ss)  # noqa
+    return (lut.name, states(lut.states), lut.idle_w, lut.cores,
+            tuple(sorted((m, states(v)) for m, v in lut.multicore.items())),
+            s.speed)
+
+
+GENERATORS = [
+    ("listing2_graph", (), {}),
+    ("listing2_uniform", (7.0,), {}),
+    ("listing2_random", (3.0,), {"seed": 11}),
+    ("is_like", (5, "B"), {"seed": 3}),
+    ("is_like", (64, "C"), {}),
+    ("ep_like", (4, "A"), {"seed": 9}),
+    ("cg_like", (4, "A"), {"seed": 8}),
+    ("pipeline_graph", (3, 4), {"skew": 0.2, "seed": 5}),
+    ("layered_dag", (5,), {"seed": 12}),
+    ("fork_join_graph", (4,), {"seed": 13}),
+    ("moe_step_graph", (6,), {"layers": 3, "seed": 14}),
+]
+
+
+@pytest.mark.parametrize("name,args,kw", GENERATORS,
+                         ids=[f"{g[0]}-{i}" for i, g in enumerate(GENERATORS)])
+def test_workload_generators_same_graph_for_same_seed(name, args, kw):
+    ref = getattr(ref_wl, name)(*args, **kw)
+    port = getattr(port_wl, name)(*args, **kw)
+    assert graph_key(port) == graph_key(ref)
+    assert port.to_text() == ref.to_text()
+    assert port.max_depths() == ref.max_depths()
+
+
+@pytest.mark.parametrize("n,seed", [(1, 0), (4, 0), (7, 3), (64, 0)])
+def test_clusters_and_luts_match(n, seed):
+    ref = ref_power.heterogeneous_cluster(n, seed=seed)
+    port = port_power.heterogeneous_cluster(n, seed=seed)
+    assert [spec_key(s) for s in port] == [spec_key(s) for s in ref]
+    assert [spec_key(s) for s in port_power.homogeneous_cluster(n)] == \
+        [spec_key(s) for s in ref_power.homogeneous_cluster(n)]
+    lut = port_power.tpu_v5e_lut()
+    assert spec_key(port_power.NodeSpec(lut)) == \
+        spec_key(ref_power.NodeSpec(ref_power.tpu_v5e_lut()))
+    assert port_power.min_feasible_cluster_bound(port) == \
+        ref_power.min_feasible_cluster_bound(ref)
+    assert port_power.max_useful_cluster_bound(port) == \
+        ref_power.max_useful_cluster_bound(ref)
+    for name in ("state_p", "state_f", "idle_w", "p_min", "p_max", "f_min",
+                 "f_nom", "span", "speed", "cap_floor"):
+        np.testing.assert_array_equal(
+            getattr(port_power.lut_table(port), name),
+            getattr(ref_power.lut_table(ref), name))
+
+
+def test_mixed_members_match_mixed_family():
+    fam = mixed_family(seed=3)
+    port = port_wl.mixed_members(seed=3)
+    assert [m.name for m in fam.members] == [p[0] for p in port]
+    for m, (_name, graph, specs, steps) in zip(fam.members, port):
+        assert graph_key(graph) == graph_key(m.graph)
+        assert [spec_key(s) for s in specs] == [spec_key(s) for s in m.specs]
+        assert steps == m.bound_steps
+
+
+def test_geometry_builders_match():
+    """build_graph_arrays / stack_graph_arrays / pad_bound_schedules give
+    equal arrays, phantom padding included."""
+    fam = mixed_family(seed=1)
+    ref_items = [(m.graph, m.specs) for m in fam.members]
+    port_items = [(g, s) for _n, g, s, _st in port_wl.mixed_members(seed=1)]
+    for (rg, rs), (pg, pspecs) in zip(ref_items, port_items):
+        ra = ref_bs.build_graph_arrays(rg, rs)
+        pa = port_arrays.build_graph_arrays(pg, pspecs)
+        assert pa.job_ids == ra.job_ids
+        for name in ("work_pad", "rho_pad", "node_seq", "deps_pad"):
+            np.testing.assert_array_equal(getattr(pa, name),
+                                          getattr(ra, name))
+    for pad in (None, (8, 80, 24, 8, 12)):
+        ra = ref_bs.stack_graph_arrays(ref_items, pad)
+        pa = port_arrays.stack_graph_arrays(port_items, pad)
+        assert pa.row_job_ids == ra.row_job_ids
+        for name in ("n_jobs_row", "n_active", "work_pad", "rho_pad",
+                     "node_seq", "deps_pad"):
+            np.testing.assert_array_equal(getattr(pa, name),
+                                          getattr(ra, name))
+        for name in ("state_p", "state_f", "idle_w", "p_min", "p_max",
+                     "f_min", "f_nom", "span", "speed", "cap_floor"):
+            np.testing.assert_array_equal(getattr(pa.table, name),
+                                          getattr(ra.table, name))
+    scheds = [(), ((8.0, 3.0), (2.0, 5.0), (8.0, 1.0)), ((0.0, 9.0),)]
+    for got, want in zip(port_arrays.pad_bound_schedules(scheds, 3),
+                         ref_bs.pad_bound_schedules(scheds, 3)):
+        np.testing.assert_array_equal(got, want)
+    assert port_arrays.pad_bound_schedules([(), ()], 2) is None
+    with pytest.raises(ValueError, match=">= 0"):
+        port_arrays.pad_bound_schedules([((-1.0, 2.0),)], 1)
+    with pytest.raises(ValueError, match="pad_dims"):
+        port_arrays.stack_graph_arrays(port_items, (2, 2, 2, 1, 1))
+
+
+@pytest.mark.parametrize("bound", [2.5, 6.0, 12.0])
+def test_paper_ilp_matches(bound):
+    g, specs = ref_wl.listing2_graph(), ref_power.homogeneous_cluster(3)
+    ref = ref_ilp.solve_paper_ilp(g, specs, bound)
+    port = port_ilp.solve_paper_ilp(from_reference(g),
+                                    from_reference(specs), bound)
+    assert port.bounds_w.keys() == ref.bounds_w.keys()
+    for jid, w in ref.bounds_w.items():
+        assert abs(port.bounds_w[jid] - w) <= 1e-9
+    assert abs(port.objective_t - ref.objective_t) <= 1e-9
+
+
+def test_makespan_milp_and_equal_share_match():
+    g, specs = ref_wl.listing2_graph(), ref_power.homogeneous_cluster(3)
+    pg, ps = from_reference(g), from_reference(specs)
+    ref = ref_ilp.build_makespan_milp(g, specs, 6.0)
+    port = port_ilp.build_makespan_milp(pg, ps, 6.0)
+    for jid, w in ref.bounds_w.items():
+        assert abs(port.bounds_w[jid] - w) <= 1e-9
+    eq_ref = ref_ilp.equal_share_assignment(g, specs, 6.0)
+    eq_port = port_ilp.equal_share_assignment(pg, ps, 6.0)
+    assert eq_port.times == eq_ref.times
+    assert port_ilp.assignment_peak_power(pg, eq_port, ps) == \
+        ref_ilp.assignment_peak_power(g, eq_ref, specs)
+
+
+def test_convert_round_trips():
+    """Graphs, clusters, tables, geometry and assignments cross over
+    field for field; unknown objects raise."""
+    g = ref_wl.is_like(4, "A", seed=2)
+    specs = ref_power.heterogeneous_cluster(4, seed=1)
+    assert graph_key(from_reference(g)) == graph_key(g)
+    assert [spec_key(s) for s in from_reference(specs)] == \
+        [spec_key(s) for s in specs]
+    ga = ref_bs.build_graph_arrays(g, specs)
+    pa = from_reference(ga)
+    assert pa.job_ids == ga.job_ids
+    np.testing.assert_array_equal(pa.table.cap_floor, ga.table.cap_floor)
+    a = ref_ilp.equal_share_assignment(g, specs, 20.0)
+    assert from_reference(a).bounds_w == a.bounds_w
+    state = from_reference({"x": np.ones((2, 3)), "i": np.arange(4)})
+    assert state["x"].dtype.is_floating_point and state["x"].shape == (2, 3)
+    assert str(state["i"].dtype) == "torch.int64"
+    with pytest.raises(TypeError, match="no port counterpart"):
+        from_reference(object())
+
+
+_IMPORT_CHECK = """
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """Walk the package in a fresh interpreter: importing every module
+    and ``chip_smoke.py`` loads no ``jax`` and no ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split()[0] != "0"
+
+
+def _run_smoke(cwd, script):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, env=env, cwd=cwd, timeout=120)
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    """No CUDA device: a nonzero exit and no result line, in the
+    repository and in a directory holding only the script."""
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", script)
+        proc = _run_smoke(cwd, script)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
