@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Builds the hand-written ``power_step`` kernel from
-``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each entry point
-against its plain PyTorch version on the card, drives the port's main
-path — the batched wave engine, ``TorchBatchSimulator`` — at full width
-(the NPB IS class-C analogue on 64 heterogeneous nodes, 1024 cluster
-bounds, three policies), then a padded mixed-shape batch and the ILP
-policies, and checks the results against the plain version and the
-event simulator's golden makespans.  One JSON line per phase; then a
-``kernels`` line, the card's name and power limit as ``nvidia-smi``
-reports them, and last ``{"ok": true, "device": {...}}``.
+Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+with ``nvcc`` (one process per source, in parallel) and holds each entry
+point against its plain PyTorch version on the card.  Then it drives the
+port's two paths:
+
+* the batched wave engine, ``TorchBatchSimulator``, at full width (the
+  NPB IS class-C analogue on 64 heterogeneous nodes, 1024 cluster
+  bounds, three policies), a padded mixed-shape batch and the ILP
+  policies, checked against the plain version and the event simulator's
+  golden makespans (``power_step`` and ``waterfill``);
+* the dense LM serving path at full width, llama3-8b with random bf16
+  weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
+  512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
+  against the same entry point at ``impl="plain"`` on the card
+  (``rmsnorm`` and ``flash_attention``).
+
+Every path runs with the launch counts set to 0 just before it and read
+just after.  One JSON line per phase; then a ``kernels`` line, the
+card's name and power limit as ``nvidia-smi`` reports them, and last
+``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before that last line, and so does a
 machine without CUDA: nothing here falls back to the CPU or to the plain
@@ -36,6 +46,18 @@ TOL = 1e-5
 #: H100 SXM data-sheet peaks used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+#: LM kernels vs their plain versions (rtol and atol): the rmsnorm
+#: kernel sums in the plain version's order; flash attention's products
+#: run in another order than cuBLAS's, so fp32 agrees to rounding and
+#: bf16 to a flipped rounding of p or of the output.
+LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: Whole-model logits, kernel path vs plain path (bf16): normwise
+#: relative error.  Every op but the kernels is the same on both paths,
+#: and a flipped bf16 rounding (2^-8 relative) in one layer's attention
+#: output spreads through the 32 layers without growing past a few of
+#: them.
+MODEL_REL_TOL = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -145,19 +167,32 @@ def call_ms(torch, fn, reps):
 
 def device_ms(torch, fn, reps):
     """Device milliseconds per call of ``fn``: the summed time of the
-    GPU kernels and copies it ran, from ``torch.profiler``."""
+    GPU kernels and copies it ran, from ``torch.profiler`` (a profiling run
+    that records no device time is run once more before failing)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(total_us > 0, "the profiler saw no device time")
-    return total_us / 1e3 / reps
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(_self_device_us(e) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    raise SmokeFailure("the profiler saw no device time")
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / ops_per_s
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def _self_device_us(event) -> float:
@@ -518,41 +553,406 @@ def phase_ilp(torch):
          max_rel_vs_event_simulator=worst)
 
 
-def main() -> int:
-    import torch
+# ------------------------------------------------------------ LM phases
+LLAMA = "llama3-8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
+PREFILL_SEQ = 4096
+FLASH_MAIN = (1, 32, 8, PREFILL_SEQ, 128)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing runs on the CPU",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import power_step as ps
-    from repro_torch.kernels._build import load_library
 
-    device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0])
+def _max_abs(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
 
+
+def _within(torch, got, want, dtype) -> bool:
+    tol = LM_TOL[dtype]
+    return bool(((got.float() - want.float()).abs()
+                 <= tol + tol * want.float().abs()).all())
+
+
+def _rel_err(torch, got, want) -> float:
+    """Normwise relative error of ``got`` against ``want``."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm())
+
+
+def phase_rmsnorm_kernel(torch, device):
+    """rmsnorm kernel vs plain at the path's shapes (decode 8 x 4096 and
+    prefill 4096 x 4096 rows) and a ragged row count, bf16 and fp32,
+    both rounding forms; times at the decode and prefill shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    worst, bitwise, cases = 0.0, True, 0
+    for rows in (8, 4096, 1001):
+        for dtype in ("bfloat16", "float32"):
+            td = getattr(torch, dtype)
+            x = (3 * torch.randn((rows, 4096), generator=gen,
+                                 device=device)).to(td)
+            g = (1 + torch.randn(4096, generator=gen, device=device)).to(td)
+            for layer in (True, False):
+                got = rn.rmsnorm(x, g, layer_form=layer)
+                want = rn.rmsnorm(x, g, layer_form=layer, impl="plain")
+                err = _max_abs(torch, got, want)
+                require(_within(torch, got, want, dtype),
+                        f"rmsnorm {rows}x4096 {dtype} layer_form={layer}: "
+                        f"kernel vs plain max abs err {err:.3g}")
+                worst = max(worst, err)
+                bitwise = bitwise and bool(torch.equal(got, want))
+                cases += 1
+    torch.cuda.synchronize()
+    times = {}
+    for tag, rows in (("decode", SERVE_BATCH), ("prefill", PREFILL_SEQ)):
+        x = torch.randn((rows, 4096), generator=gen,
+                        device=device).to(torch.bfloat16)
+        g = torch.ones(4096, dtype=torch.bfloat16, device=device)
+        calls = {"ms": lambda: rn.rmsnorm(x, g, layer_form=True),
+                 "plain_ms": lambda: rn.rmsnorm(x, g, layer_form=True,
+                                                impl="plain"),
+                 "library_ms": lambda: F.rms_norm(x, (4096,), g, 1e-5)}
+        t = {k: device_ms(torch, fn, 50) for k, fn in calls.items()}
+        t["call_ms"] = call_ms(torch, calls["ms"], 200)
+        t.update(bound(2 * (2 * rows * 4096 + 4096), 4 * rows * 4096,
+                       FP32_OPS_PER_S))
+        times[tag] = t
+    emit("rmsnorm_kernel", cases=cases, tol=LM_TOL, max_abs_err=worst,
+         bitwise_equal=bitwise, times=times)
+    return worst, times
+
+
+def _causal_pairs(s: int, causal: bool, window: int) -> int:
+    """Query/key pairs the mask keeps (positions 0..s-1 on both)."""
+    import numpy as np
+
+    rel = np.arange(s)[:, None] - np.arange(s)[None, :]
+    keep = np.ones_like(rel, dtype=bool)
+    if causal:
+        keep &= rel >= 0
+    if window:
+        keep &= rel < window
+    return int(keep.sum())
+
+
+def phase_flash_kernel(torch, device):
+    """flash_attention kernel vs plain at the prefill shape (B=1, H=32,
+    Hkv=8, S=4096, dh=128, bf16, causal) and small ones (MHA, fp32,
+    full, window); times at the prefill shape, with SDPA as the library
+    yardstick (timed here only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    cases = [(FLASH_MAIN, "bfloat16", True, 0),
+             ((1, 4, 4, 256, 64), "float32", False, 0),
+             ((2, 8, 2, 512, 64), "bfloat16", True, 0),
+             ((1, 4, 2, 1024, 128), "bfloat16", True, 256),
+             ((1, 2, 2, 256, 32), "float32", True, 0),
+             ((1, 2, 1, 192, 256), "bfloat16", False, 100)]
+    worst = {}
+    main_inputs = None
+    for (b, h, hkv, s, dh), dtype, causal, window in cases:
+        td = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(td)
+                   for shape in ((b, h, s, dh), (b, hkv, s, dh),
+                                 (b, hkv, s, dh)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="plain")
+        err = _max_abs(torch, got, want)
+        name = f"{b}x{h}/{hkv}x{s}x{dh} {dtype} causal={causal} w={window}"
+        require(_within(torch, got, want, dtype),
+                f"flash {name}: kernel vs plain max abs err {err:.3g}")
+        worst[name] = err
+        if main_inputs is None:
+            main_inputs = (q, k, v)
+    torch.cuda.synchronize()
+    q, k, v = main_inputs
+    b, h, hkv, s, dh = FLASH_MAIN
+    calls = {"ms": lambda: fa.flash_attention(q, k, v),
+             "plain_ms": lambda: fa.flash_attention(q, k, v, impl="plain"),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True)}
+    times = {key: device_ms(torch, fn, 3 if key == "plain_ms" else 10)
+             for key, fn in calls.items()}
+    times["call_ms"] = call_ms(torch, calls["ms"], 10)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    times["library_max_abs_diff"] = _max_abs(torch, fa.flash_attention(
+        q, k, v), lib)
+    flops = 4 * b * h * dh * _causal_pairs(s, True, 0)
+    nbytes = 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
+    times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
+    times["tflops"] = flops / (times["ms"] * 1e9)
+    emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, shape=FLASH_MAIN,
+         **times)
+    return max(worst.values()), times
+
+
+def _llama_params(torch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(LLAMA)
+    require(cfg.n_layers == 32 and cfg.d_model == 4096
+            and cfg.n_heads == 32 and cfg.n_kv_heads == 8
+            and cfg.d_ff == 14336 and cfg.vocab == 128256
+            and cfg.dtype == "bfloat16", f"{LLAMA} is not at full width")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
     t0 = time.perf_counter()
-    kl = load_library()
-    emit("build", seconds=time.perf_counter() - t0, nvcc_s=kl.build_s,
-         library=str(kl.path.relative_to(ROOT)),
-         ptxas=[ln.strip() for ln in kl.log.splitlines()
-                if "registers" in ln or "spill" in ln])
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    return cfg, params, n, time.perf_counter() - t0
+
+
+def _profile(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: wall s, device s and the
+    five kernels with the most device time (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(_self_device_us(e) for e in rows) / 1e6
+    top = sorted(rows, key=_self_device_us, reverse=True)[:6]
+    return {"wall_s": wall, "device_s": device_s,
+            "device_busy_share": device_s / wall,
+            "device_launches": sum(e.count for e in rows),
+            "top_device_ms": {e.key[:70]: _self_device_us(e) / 1e3
+                              for e in top}}
+
+
+def _zero(counters):
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
+def phase_serve_full_width(torch, device, counters, model):
+    """ServeEngine.generate on 8 requests (prompt 512, 64 new tokens,
+    greedy) with llama3-8b at full width; the first decode steps' logits
+    against the same engine at impl="plain"."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import init_cache
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg, params = model
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           dtype=np.int32)
+    max_seq = SERVE_PROMPT + SERVE_NEW
+    engine = ServeEngine(cfg, params, max_seq=max_seq, max_batch=SERVE_BATCH)
+    engine.generate(prompts[:, :4], 2)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, SERVE_NEW)
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
+                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    steps = SERVE_PROMPT + SERVE_NEW - 1
+    want = (2 * cfg.n_layers + 1) * steps
+    require(launches["rmsnorm"] == want,
+            f"serve: rmsnorm launches {launches['rmsnorm']} != {want}")
+    require(launches["flash_attention"] == 0,
+            "serve: decode runs no flash attention")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(res.new_tokens.shape == (SERVE_BATCH, SERVE_NEW)
+            and bool(((res.new_tokens >= 0)
+                      & (res.new_tokens < cfg.vocab)).all()),
+            "serve: tokens out of range")
+    with torch.inference_mode():
+        # 8 decode steps at the end of the prompt, under the profiler (the
+        # attention reads the whole 576-slot cache whatever it holds)
+        cache = init_cache(cfg, SERVE_BATCH, max_seq, device)
+        tok = torch.as_tensor(res.new_tokens[:, :1], device=device,
+                              dtype=torch.int64)
+        prof = _profile(torch, lambda: [engine.decode(
+            cache, tok, SERVE_PROMPT + i) for i in range(8)])
+        del cache
+        # kernel vs plain: the first 8 decode steps from an empty cache
+        plain = ServeEngine(cfg, params, max_seq=max_seq,
+                            max_batch=SERVE_BATCH, impl="plain")
+        caches = [init_cache(cfg, SERVE_BATCH, max_seq, device)
+                  for _ in range(2)]
+        toks = torch.as_tensor(prompts, device=device, dtype=torch.int64)
+        rel = abs_err = 0.0
+        for i in range(8):
+            got = engine.decode(caches[0], toks[:, i:i + 1], i)
+            ref = plain.decode(caches[1], toks[:, i:i + 1], i)
+            require(bool(torch.isfinite(got).all()),
+                    "serve: non-finite logits")
+            rel = max(rel, _rel_err(torch, got, ref))
+            abs_err = max(abs_err, _max_abs(torch, got, ref))
+        del caches
+    require(rel <= MODEL_REL_TOL,
+            f"serve: logits kernel vs plain normwise rel err {rel:.3g}")
+    emit("serve_full_width", arch=LLAMA, batch=SERVE_BATCH,
+         prompt=SERVE_PROMPT, new=SERVE_NEW, wall_s=wall,
+         prefill_s=res.prefill_s, prefill_tokens_per_s=SERVE_BATCH
+         * SERVE_PROMPT / res.prefill_s,
+         prefill_ms_per_step=1e3 * res.prefill_s / SERVE_PROMPT,
+         decode_s=res.decode_s,
+         decode_tokens_per_s=SERVE_BATCH * (SERVE_NEW - 1) / res.decode_s,
+         decode_ms_per_step=1e3 * res.decode_s / (SERVE_NEW - 1),
+         peak_memory_gb=peak_gb, launches=launches, expected_rmsnorm=want,
+         logits_rel_err_vs_plain=rel, logits_max_abs_err_vs_plain=abs_err,
+         rel_tol=MODEL_REL_TOL, first_tokens=res.new_tokens[0, :8].tolist(),
+         decode_profile_8_steps=prof)
+    return launches
+
+
+def phase_prefill_full_width(torch, device, counters, model):
+    """make_prefill_step on llama3-8b at B=1, S=4096: one flash launch
+    per layer; logits against impl="plain"."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, params = model
+    tokens = np.random.default_rng(1).integers(2, cfg.vocab,
+                                               (1, PREFILL_SEQ))
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tokens[:, :2048]})          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
+                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    want = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    require(launches == want, f"prefill: launches {launches} != {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(tuple(logits.shape) == (1, PREFILL_SEQ, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"prefill: logits {tuple(logits.shape)} not finite or misshaped")
+    t0 = time.perf_counter()
+    ref = make_prefill_step(cfg, impl="plain")(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    rel = _rel_err(torch, logits, ref)
+    abs_err = _max_abs(torch, logits, ref)
+    argmax_agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    del logits, ref
+    require(rel <= MODEL_REL_TOL,
+            f"prefill: logits kernel vs plain normwise rel err {rel:.3g}")
+    prof = _profile(torch, lambda: step(params, {"tokens": tokens}))
+    emit("prefill_full_width", arch=LLAMA, batch=1, seq=PREFILL_SEQ,
+         wall_s=wall, tokens_per_s=PREFILL_SEQ / wall, plain_wall_s=plain_wall,
+         peak_memory_gb=peak_gb, launches=launches,
+         logits_rel_err_vs_plain=rel, logits_max_abs_err_vs_plain=abs_err,
+         argmax_agreement_vs_plain=argmax_agree, rel_tol=MODEL_REL_TOL,
+         profile=prof)
+    return launches
+
+
+def _lm_worker(queue) -> None:
+    """Worker process: the LM phases on the card.  A fresh process gets a
+    fresh profiler: in one process, after the wave engine's phases, the
+    profiler stopped recording device time (an H100 run of this script).
+    Sends back the LM kernels' entries, or the traceback of a failure."""
+    import traceback
+
+    try:
+        import torch
+
+        sys.path.insert(0, str(SRC))
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import power_step as ps
+        from repro_torch.kernels import rmsnorm as rn
+
+        queue.put(("ok", lm_phases(torch, torch.device("cuda"),
+                                   (ps.LAUNCHES, rn.LAUNCHES, fa.LAUNCHES))))
+    except Exception:     # reported to the parent, which fails the run
+        queue.put(("error", traceback.format_exc()))
+
+
+def run_lm_phases() -> list:
+    """The LM phases in a spawned process; their kernels' entries."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    worker = ctx.Process(target=_lm_worker, args=(queue,))
+    worker.start()
+    try:
+        status, out = queue.get(timeout=900)
+        worker.join(timeout=120)
+    finally:
+        if worker.is_alive():
+            worker.terminate()
+            worker.join()
+    require(status == "ok", f"LM phases failed:\n{out}")
+    return out
+
+
+def lm_phases(torch, device, counters):
+    """The kernel phases and the full-width serving path of llama3-8b."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    rms_err, rms_times = phase_rmsnorm_kernel(torch, device)
+    fa_err, fa_times = phase_flash_kernel(torch, device)
+    cfg, params, n_params, init_s = _llama_params(torch, device)
+    emit("llama_params", arch=LLAMA, params=n_params, init_s=init_s,
+         gb=2 * n_params / 1e9)
+    serve = phase_serve_full_width(torch, device, counters, (cfg, params))
+    prefill = phase_prefill_full_width(torch, device, counters,
+                                       (cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    dec, pre = rms_times["decode"], rms_times["prefill"]
+    return [
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:20",
+         "launches": serve["rmsnorm"], "launches_prefill": prefill["rmsnorm"],
+         "max_abs_err": rms_err, "shape": [SERVE_BATCH, 4096],
+         **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+         **{f"{k}_prefill": pre[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms")}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:33",
+         "launches": prefill["flash_attention"], "max_abs_err": fa_err,
+         "shape": list(FLASH_MAIN),
+         **{k: fa_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
+                                     "bound_by", "library_ms")}},
+    ]
+
+
+def sim_phases(torch, device, counters):
+    """The wave engine's phases; returns its kernels' entries."""
+    from repro_torch.kernels import power_step as ps
 
     worst, times, bounds = phase_kernel(torch, device)
+    _zero(counters)
     main_launches = phase_full_width(torch, ps.LAUNCHES)
     phase_profile(torch)
     phase_padded(torch, ps.LAUNCHES)
     phase_ilp(torch)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
-    kernels = [
+    return [
         {"name": "power_step", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/power_step.py:195",
          "launches": main_launches["power_step"],
@@ -573,6 +973,41 @@ def main() -> int:
          **{k: bounds["waterfill"][k] for k in ("bound_ms", "bound_by")},
          "library_ms": None},
     ]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing runs on the CPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import power_step as ps
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels._build import load_library
+
+    device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    kl = load_library()
+    emit("build", seconds=time.perf_counter() - t0, nvcc_s=kl.build_s,
+         library=str(kl.path.relative_to(ROOT)),
+         ptxas=[ln.strip() for ln in kl.log.splitlines()
+                if "registers" in ln or "spill" in ln
+                or ln.startswith("[")])
+
+    kernels = sim_phases(torch, device,
+                         (ps.LAUNCHES, rn.LAUNCHES, fa.LAUNCHES))
+    kernels += run_lm_phases()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

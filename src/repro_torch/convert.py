@@ -16,7 +16,14 @@ imported — and returns the port's counterpart:
 * a policy ``init_state(...)`` dict -> tensors on ``device`` (floats as
   float32, the engine's type).
 
-The tests use it so that both engines run literally the same arrays.
+For the LM path, :func:`params_from_reference` takes a dense model's
+parameter pytree (``init_params``: stacked ``blocks`` leaves ``(L, ...)``)
+and returns the port's :class:`~repro_torch.models.model.DenseLM`, one
+block per layer, in ``cfg.param_dtype``; :func:`cache_from_reference`
+takes a decode cache.  A bf16 leaf (an ``ml_dtypes`` array that
+``torch.as_tensor`` rejects) goes through float32, which is lossless.
+
+The tests use it so that both packages run literally the same arrays.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from repro_torch.core.graph import Job, JobDependencyGraph
 from repro_torch.core.ilp import PowerAssignment
 from repro_torch.core.power import LUTTable, NodeSpec, PowerLUT, PowerState
 from repro_torch.kernels.power_step import StepTables
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import MLP, dtype_of
+from repro_torch.models.model import Block, DenseLM, require_dense
 
 _LUT_FIELDS = ("state_p", "state_f", "idle_w", "p_min", "p_max", "f_min",
                "f_nom", "span", "speed", "cap_floor")
@@ -40,6 +50,8 @@ def _has(obj, *names) -> bool:
 
 def _tensor(a, device) -> torch.Tensor:
     arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
     t = torch.as_tensor(arr, device=device)
     if arr.dtype.kind == "f":
         t = t.to(torch.float32)
@@ -103,3 +115,54 @@ def from_reference(obj, device="cpu"):
             lanes = [t.reshape(t.shape[0], -1) for t in lanes]
         return StepTables(state_p, state_f, *lanes)
     raise TypeError(f"no port counterpart for {type(obj).__name__}")
+
+
+# ------------------------------------------------------------------- LM
+def _leaf(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """One float array in ``dtype`` on ``device``, through a float32 copy
+    (lossless for the bf16 and fp32 leaves of the reference)."""
+    arr = np.array(a, dtype=np.float32)
+    return torch.as_tensor(arr, device=device).to(dtype).contiguous()
+
+
+def attention_from_reference(p, dtype, device="cpu") -> Attention:
+    """One attention layer's ``attn_init`` dict -> :class:`Attention`."""
+    t = {k: _leaf(v, dtype, device) for k, v in p.items()}
+    return Attention(t["wq"], t["wk"], t["wv"], t["wo"], t.get("bq"),
+                     t.get("bk"), t.get("bv"))
+
+
+def mlp_from_reference(p, dtype, device="cpu") -> MLP:
+    t = {k: _leaf(v, dtype, device) for k, v in p.items()}
+    return MLP(t["wi"], t["wo"], t.get("wg"))
+
+
+def params_from_reference(cfg, params, device="cpu") -> DenseLM:
+    """A dense model's JAX parameter pytree -> :class:`DenseLM` in
+    ``cfg.param_dtype`` on ``device``, the stacked layers unstacked."""
+    require_dense(cfg)
+    dt = dtype_of(cfg.param_dtype)
+    stacked = params["blocks"]
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+                for k, v in tree.items()}
+
+    blocks = []
+    for i in range(cfg.n_layers):
+        p = layer(stacked, i)
+        blocks.append(Block(_leaf(p["ln1"], dt, device),
+                            _leaf(p["ln2"], dt, device),
+                            attention_from_reference(p["attn"], dt, device),
+                            mlp_from_reference(p["ffn"], dt, device)))
+    head = params.get("lm_head")
+    return DenseLM(_leaf(params["embed"], dt, device), blocks,
+                   _leaf(params["final_norm"], dt, device),
+                   None if head is None else _leaf(head, dt, device))
+
+
+def cache_from_reference(cache, device="cpu"):
+    """A decode cache pytree -> dict of tensors, each leaf in its own
+    type (a bf16 leaf stays bf16)."""
+    return {k: _leaf(v, getattr(torch, np.asarray(v).dtype.name), device)
+            for k, v in cache.items()}

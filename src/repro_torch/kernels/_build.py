@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface, on first use, into
+into one shared library with a plain C interface, on first use, into
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``).  The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as built.  Nothing here runs at import time: this module is
+``.gitignore``).  Each source compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` links them.  The
+library's file name carries a hash of the sources and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as built.  Nothing here runs at import time: this module is
 imported on machines with no CUDA toolkit, where only the plain PyTorch
 versions run.
 """
@@ -23,19 +24,19 @@ from pathlib import Path
 from typing import NamedTuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("power_step.cu",)
+_SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: ``--fmad=false`` keeps every multiply and add rounding on its own (no
 #: FMA contraction), and the absence of ``--use_fast_math`` keeps IEEE
 #: division: the kernels then round exactly as their plain versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 class KernelLibrary(NamedTuple):
@@ -71,6 +72,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_power_step.restype = _I
     lib.repro_waterfill.argtypes = [_P] * 5 + [_I, _I, _LL, _P]
     lib.repro_waterfill.restype = _I
+    lib.repro_rmsnorm.argtypes = [_P, _P, _P, _LL, _I, _F, _F, _I, _I, _P]
+    lib.repro_rmsnorm.restype = _I
+    lib.repro_flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_F] + \
+        [_I] * 3 + [_P]
+    lib.repro_flash_attention.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 
@@ -82,15 +88,31 @@ def load_library() -> KernelLibrary:
     build_s, log = 0.0, ""
     if not path.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(_CSRC / name) for name in _SOURCES)]
+        nvcc = find_nvcc()
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in _SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(_CSRC / name)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for name, obj in zip(_SOURCES, objs)]
+        outs = [(name, p.communicate()[0], p.returncode)
+                for name, p in zip(_SOURCES, procs)]
+        log = "".join(f"[{name}]\n{out}" for name, out, _ in outs)
+        failed = [name for name, _, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
         build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(tmp, path)        # atomic: concurrent builders agree
     lib = ctypes.CDLL(str(path))
     _declare(lib)

@@ -1,0 +1,33 @@
+"""Model-layout wrappers around the LM kernels, as the reference's
+``kernels/ops.py``: q ``(B, S, H, dh)`` and k/v ``(B, S, Hkv, dh)`` are
+swapped to the kernel's ``(B, H, S, dh)`` and back.  ``impl`` picks the
+implementation as every dispatch of the port does (``None``: the kernel
+for CUDA tensors, the plain version for CPU ones).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """q ``(B, S, H, dh)``; k/v ``(B, S, Hkv, dh)`` -> ``(B, S, H, dh)``."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
+                              impl=impl)
+    return out.transpose(1, 2)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5,
+            layer_form: bool = False,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """x ``(..., d)``, gamma ``(d,)`` -> x's shape and type."""
+    return _rn.rmsnorm(x.contiguous(), gamma.contiguous(), eps, layer_form,
+                       impl)

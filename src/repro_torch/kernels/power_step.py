@@ -281,7 +281,7 @@ def resolve_impl(impl: Optional[str], like: torch.Tensor) -> str:
     if impl is None:
         return "cuda" if like.is_cuda else "plain"
     if impl not in ("plain", "cuda"):
-        raise ValueError(f"unknown power_step impl {impl!r}")
+        raise ValueError(f"unknown kernel impl {impl!r}")
     return impl
 
 

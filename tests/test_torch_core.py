@@ -191,6 +191,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+lm = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
+      "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
+      "repro_torch.kernels.ref", "repro_torch.models.layers",
+      "repro_torch.models.attention", "repro_torch.models.model",
+      "repro_torch.serving.engine", "repro_torch.launch.steps",
+      "repro_torch.launch.serve"}}
+assert lm <= set(names), sorted(lm - set(names))
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -201,7 +208,8 @@ assert not bad, bad
 
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
-    and ``chip_smoke.py`` loads no ``jax`` and no ``repro``."""
+    (the LM path's among them) and ``chip_smoke.py`` loads no ``jax``
+    and no ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],

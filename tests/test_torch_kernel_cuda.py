@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the
-card.  Every test here needs an NVIDIA GPU with ``nvcc`` and skips
-elsewhere; the file imports neither ``jax`` nor ``repro``, so it runs on
-the GPU machine as it is:
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card: ``power_step`` (with ``waterfill``), ``rmsnorm`` and
+``flash_attention``.  Every test here needs an NVIDIA GPU with ``nvcc``
+and skips elsewhere; the file imports neither ``jax`` nor ``repro``, so
+it runs on the GPU machine as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 """
@@ -14,7 +15,12 @@ from repro_torch.backends.engine import TorchBatchSimulator
 from repro_torch.core.power import (heterogeneous_cluster, lut_table,
                                     stack_lut_tables)
 from repro_torch.core.workloads import listing2_graph, mixed_members
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import power_step as ps
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels._build import check, load_library
+from repro_torch.models import forward, init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +106,107 @@ def test_default_device_is_the_card(cuda_device):
                               heterogeneous_cluster(3), [6.0])
     assert sim.device.type == "cuda" and sim.impl == "cuda"
     assert sim.run()[0].makespan > 0
+
+
+# ------------------------------------------------------------ LM kernels
+#: kernel vs plain: the rmsnorm kernel sums in the plain version's order
+#: (measured bit for bit on the card); flash attention's products run in
+#: another order than cuBLAS's, so fp32 agrees to rounding and bf16 to a
+#: flipped rounding of p or of the output
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("layer_form", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4096), (1000, 4096), (3, 5, 96),
+                                   (2, 300)])
+def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, layer_form):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    g = (1 + torch.randn(shape[-1], generator=gen,
+                         device=cuda_device)).to(dtype)
+    before = rn.LAUNCHES["rmsnorm"]
+    got = rn.rmsnorm(x, g, layer_form=layer_form)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm"] == before + 1
+    want = rn.rmsnorm(x, g, layer_form=layer_form, impl="plain")
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype", [
+    (1, 4, 4, 128, 64, False, 0, torch.float32),     # MHA, full
+    (2, 8, 2, 256, 64, True, 0, torch.bfloat16),     # GQA 4:1
+    (1, 4, 1, 128, 128, True, 0, torch.float32),     # MQA
+    (1, 4, 2, 1024, 128, True, 256, torch.bfloat16),  # sliding window
+    (1, 2, 2, 192, 16, False, 100, torch.float32),   # window, full
+    (1, 2, 1, 128, 256, True, 0, torch.bfloat16),    # widest head
+    (1, 32, 8, 2048, 128, True, 0, torch.bfloat16),  # llama3-8b heads
+])
+def test_flash_kernel_matches_plain(cuda_device, b, h, hkv, s, dh, causal,
+                                    window, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(s + dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention(q, k, v, causal=causal, window=window,
+                              impl="plain")
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_lm_kernels_reject_what_they_cannot_take(cuda_device):
+    x = torch.randn(64, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rmsnorm(x.t(), torch.ones(64, device=cuda_device))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rn.rmsnorm(x.half(), torch.ones(32, device=cuda_device).half())
+    q = torch.randn(1, 2, 128, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           q, q)
+    with pytest.raises(ValueError, match="multiples"):
+        fa.flash_attention(q[:, :, :100].contiguous(),
+                           q[:, :, :100].contiguous(),
+                           q[:, :, :100].contiguous())
+    with pytest.raises(ValueError, match="dh"):
+        fa.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                           q[..., :48].contiguous())
+
+
+def test_launch_failure_raises(cuda_device):
+    """A launcher that refuses its arguments returns a CUDA error code;
+    the wrappers' check turns it into an exception."""
+    lib = load_library().lib
+    x = torch.randn(4, 64, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = lib.repro_rmsnorm(x.data_ptr(), x.data_ptr(), x.data_ptr(), 0, 64,
+                             1.0 / 64, 1e-5, 0, 1, stream)
+    assert code != 0
+    with pytest.raises(RuntimeError, match="rmsnorm kernel launch failed"):
+        check(code, "rmsnorm")
+    code = lib.repro_flash_attention(x.data_ptr(), x.data_ptr(),
+                                     x.data_ptr(), x.data_ptr(), 1, 1, 1, 64,
+                                     64, 48, 0.125, 1, 0, 0, stream)
+    with pytest.raises(RuntimeError, match="flash_attention kernel launch"):
+        check(code, "flash_attention")
+
+
+def test_model_forward_on_card_counts_launches(cuda_device):
+    """A smoke model's forward at S=2048 on the card: 2 L + 1 rmsnorm and
+    L flash launches, logits close to the plain path's."""
+    cfg = get_smoke("llama3-8b")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    before = (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"])
+    with torch.inference_mode():
+        got, _ = forward(cfg, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        after = (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"])
+        want, _ = forward(cfg, params, {"tokens": tokens}, impl="plain")
+    assert after == (before[0] + 2 * cfg.n_layers + 1,
+                     before[1] + cfg.n_layers)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
