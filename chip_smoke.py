@@ -15,7 +15,12 @@ port's two paths:
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
   against the same entry point at ``impl="plain"`` on the card
-  (``rmsnorm`` and ``flash_attention``).
+  (``rmsnorm`` and ``flash_attention``);
+* the hybrid LM serving path at full width, zamba2-2.7b (54 Mamba2
+  layers, the shared attention block after every 6th), random bf16
+  weights from a seed, through the same two entry points after
+  llama3-8b's weights are freed (``rmsnorm``, ``ssm_scan`` on the SSD
+  core of every Mamba2 layer's prefill, ``flash_attention`` at dh=80).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; then a ``kernels`` line, the
@@ -58,6 +63,10 @@ LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: output spreads through the 32 layers without growing past a few of
 #: them.
 MODEL_REL_TOL = 2e-2
+#: ssm_scan kernel vs plain (rtol and atol): the same fp32 arithmetic in
+#: the same order, bf16 inputs read as fp32 exactly; only exp may differ
+#: by an ulp.
+SSM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -555,9 +564,15 @@ def phase_ilp(torch):
 
 # ------------------------------------------------------------ LM phases
 LLAMA = "llama3-8b"
+ZAMBA = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
 PREFILL_SEQ = 4096
 FLASH_MAIN = (1, 32, 8, PREFILL_SEQ, 128)
+#: zamba2's shared attention at the prefill: 32 heads of 80, MHA
+FLASH_ZAMBA = (1, 32, 32, PREFILL_SEQ, 80)
+#: zamba2's SSD core at the prefill: (B, H, S, P, N) and the SSD chunk
+SSM_MAIN = (1, 80, PREFILL_SEQ, 64, 64)
+SSM_CHUNK = 128
 
 
 def _max_abs(torch, got, want) -> float:
@@ -577,9 +592,11 @@ def _rel_err(torch, got, want) -> float:
 
 
 def phase_rmsnorm_kernel(torch, device):
-    """rmsnorm kernel vs plain at the path's shapes (decode 8 x 4096 and
+    """rmsnorm kernel vs plain at llama3-8b's shapes (decode 8 x 4096 and
     prefill 4096 x 4096 rows) and a ragged row count, bf16 and fp32,
-    both rounding forms; times at the decode and prefill shapes."""
+    both rounding forms, and at zamba2-2.7b's (8 and 4096 rows of 2560,
+    and of 5120 for the gated norm; bf16, the layer's form); times at
+    llama's decode and prefill shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as rn
@@ -587,22 +604,24 @@ def phase_rmsnorm_kernel(torch, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     worst, bitwise, cases = 0.0, True, 0
-    for rows in (8, 4096, 1001):
-        for dtype in ("bfloat16", "float32"):
-            td = getattr(torch, dtype)
-            x = (3 * torch.randn((rows, 4096), generator=gen,
-                                 device=device)).to(td)
-            g = (1 + torch.randn(4096, generator=gen, device=device)).to(td)
-            for layer in (True, False):
-                got = rn.rmsnorm(x, g, layer_form=layer)
-                want = rn.rmsnorm(x, g, layer_form=layer, impl="plain")
-                err = _max_abs(torch, got, want)
-                require(_within(torch, got, want, dtype),
-                        f"rmsnorm {rows}x4096 {dtype} layer_form={layer}: "
-                        f"kernel vs plain max abs err {err:.3g}")
-                worst = max(worst, err)
-                bitwise = bitwise and bool(torch.equal(got, want))
-                cases += 1
+    shapes = [(rows, 4096, dtype, (True, False)) for rows in (8, 4096, 1001)
+              for dtype in ("bfloat16", "float32")]
+    shapes += [(rows, d, "bfloat16", (True,))
+               for rows in (SERVE_BATCH, PREFILL_SEQ) for d in (2560, 5120)]
+    for rows, d, dtype, forms in shapes:
+        td = getattr(torch, dtype)
+        x = (3 * torch.randn((rows, d), generator=gen, device=device)).to(td)
+        g = (1 + torch.randn(d, generator=gen, device=device)).to(td)
+        for layer in forms:
+            got = rn.rmsnorm(x, g, layer_form=layer)
+            want = rn.rmsnorm(x, g, layer_form=layer, impl="plain")
+            err = _max_abs(torch, got, want)
+            require(_within(torch, got, want, dtype),
+                    f"rmsnorm {rows}x{d} {dtype} layer_form={layer}: "
+                    f"kernel vs plain max abs err {err:.3g}")
+            worst = max(worst, err)
+            bitwise = bitwise and bool(torch.equal(got, want))
+            cases += 1
     torch.cuda.synchronize()
     times = {}
     for tag, rows in (("decode", SERVE_BATCH), ("prefill", PREFILL_SEQ)):
@@ -637,24 +656,24 @@ def _causal_pairs(s: int, causal: bool, window: int) -> int:
 
 
 def phase_flash_kernel(torch, device):
-    """flash_attention kernel vs plain at the prefill shape (B=1, H=32,
-    Hkv=8, S=4096, dh=128, bf16, causal) and small ones (MHA, fp32,
-    full, window); times at the prefill shape, with SDPA as the library
-    yardstick (timed here only)."""
-    import torch.nn.functional as F
-
+    """flash_attention kernel vs plain at llama3-8b's prefill shape (B=1,
+    H=32, Hkv=8, S=4096, dh=128, bf16, causal), zamba2-2.7b's (H=Hkv=32,
+    dh=80) and small ones (MHA, fp32, full, window); times at both
+    prefill shapes, with SDPA as the library yardstick (timed here
+    only)."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     cases = [(FLASH_MAIN, "bfloat16", True, 0),
+             (FLASH_ZAMBA, "bfloat16", True, 0),
              ((1, 4, 4, 256, 64), "float32", False, 0),
              ((2, 8, 2, 512, 64), "bfloat16", True, 0),
              ((1, 4, 2, 1024, 128), "bfloat16", True, 256),
              ((1, 2, 2, 256, 32), "float32", True, 0),
              ((1, 2, 1, 192, 256), "bfloat16", False, 100)]
     worst = {}
-    main_inputs = None
+    inputs = {}
     for (b, h, hkv, s, dh), dtype, causal, window in cases:
         td = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(td)
@@ -668,11 +687,24 @@ def phase_flash_kernel(torch, device):
         require(_within(torch, got, want, dtype),
                 f"flash {name}: kernel vs plain max abs err {err:.3g}")
         worst[name] = err
-        if main_inputs is None:
-            main_inputs = (q, k, v)
+        if (b, h, hkv, s, dh) in (FLASH_MAIN, FLASH_ZAMBA):
+            inputs[(b, h, hkv, s, dh)] = (q, k, v)
     torch.cuda.synchronize()
-    q, k, v = main_inputs
-    b, h, hkv, s, dh = FLASH_MAIN
+    times = _flash_times(torch, FLASH_MAIN, *inputs.pop(FLASH_MAIN))
+    zamba = _flash_times(torch, FLASH_ZAMBA, *inputs.pop(FLASH_ZAMBA))
+    emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, shape=FLASH_MAIN,
+         **times, shape_zamba2=FLASH_ZAMBA, zamba2=zamba)
+    return max(worst.values()), times, zamba
+
+
+def _flash_times(torch, shape, q, k, v):
+    """Kernel, plain and SDPA device ms at one causal bf16 shape, the
+    kernel's call ms, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, hkv, s, dh = shape
     calls = {"ms": lambda: fa.flash_attention(q, k, v),
              "plain_ms": lambda: fa.flash_attention(q, k, v, impl="plain"),
              "library_ms": lambda: F.scaled_dot_product_attention(
@@ -688,20 +720,98 @@ def phase_flash_kernel(torch, device):
     nbytes = 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
     times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
     times["tflops"] = flops / (times["ms"] * 1e9)
-    emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, shape=FLASH_MAIN,
-         **times)
+    return times
+
+
+def phase_ssm_scan_kernel(torch, device):
+    """ssm_scan kernel vs plain at zamba2's prefill shape (1, 80, 4096,
+    64), N=64, in bf16 (the path's type) and fp32, and at two small ones
+    (N=8 below a warp, N=256 the widest state); times at the prefill
+    shape in bf16.  No single PyTorch call computes a selective scan, so
+    there is no library time."""
+    from repro_torch.kernels import ssm_scan as ss
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+
+    def inputs(b, h, s, p, n, dtype):
+        rnd = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=device)
+        return (rnd(b, h, s, p).to(dtype), -rnd(b, h, s).abs() * 0.2,
+                rnd(b, h, s).abs(), rnd(b, s, n).to(dtype),
+                rnd(b, s, n).to(dtype))
+
+    cases = [(SSM_MAIN, SSM_CHUNK, "bfloat16"),
+             (SSM_MAIN, SSM_CHUNK, "float32"),
+             ((2, 3, 128, 16, 8), 64, "float32"),
+             ((1, 2, 192, 32, 256), 64, "bfloat16")]
+    worst, main = {}, None
+    for shape, chunk, dtype in cases:
+        args = inputs(*shape, getattr(torch, dtype))
+        got = ss.ssm_scan(*args, chunk=chunk)
+        want = ss.ssm_scan(*args, chunk=chunk, impl="plain")
+        tol = SSM_TOL[dtype]
+        err = _max_abs(torch, got, want)
+        name = "x".join(map(str, shape)) + f" chunk={chunk} {dtype}"
+        require(bool(torch.isfinite(got).all())
+                and bool(((got - want).abs() <= tol + tol * want.abs())
+                         .all()),
+                f"ssm_scan {name}: kernel vs plain max abs err {err:.3g}")
+        worst[name] = err
+        if main is None:
+            main = args
+        del got, want
+    torch.cuda.synchronize()
+    calls = {"ms": lambda: ss.ssm_scan(*main, chunk=SSM_CHUNK),
+             "plain_ms": lambda: ss.ssm_scan(*main, chunk=SSM_CHUNK,
+                                             impl="plain")}
+    times = {k: device_ms(torch, fn, 3 if k == "plain_ms" else 10)
+             for k, fn in calls.items()}
+    times["call_ms"] = call_ms(torch, calls["ms"], 10)
+    times["library_ms"] = None
+    b, h, s, p, n = SSM_MAIN
+    x, a, dt, bm, cm = main
+    # each input read once, y (fp32) written once; 6 fp32 operations per
+    # state entry and step (the update's 2 products and sum, the outer
+    # product, the dot's product and sum)
+    nbytes = sum(t.numel() * t.element_size() for t in main) + 4 * x.numel()
+    times.update(bound(nbytes, 6 * b * h * s * p * n, FP32_OPS_PER_S))
+    emit("ssm_scan_kernel", tol=SSM_TOL, max_abs_err=worst, shape=SSM_MAIN,
+         chunk=SSM_CHUNK, dtype="bfloat16", **times)
     return max(worst.values()), times
 
 
 def _llama_params(torch, device):
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
 
     cfg = get_config(LLAMA)
     require(cfg.n_layers == 32 and cfg.d_model == 4096
             and cfg.n_heads == 32 and cfg.n_kv_heads == 8
             and cfg.d_ff == 14336 and cfg.vocab == 128256
             and cfg.dtype == "bfloat16", f"{LLAMA} is not at full width")
+    return _random_params(torch, device, cfg)
+
+
+def _zamba2_params(torch, device):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ZAMBA)
+    ssm = cfg.ssm
+    require(cfg.family == "hybrid" and cfg.n_layers == 54
+            and cfg.attn_every == 6 and cfg.d_model == 2560
+            and cfg.n_heads == 32 and cfg.n_kv_heads == 32 and cfg.dh == 80
+            and cfg.d_ff == 10240 and cfg.vocab == 32000
+            and (ssm.state_dim, ssm.head_dim, ssm.expand, ssm.conv_width,
+                 ssm.chunk) == (64, 64, 2, 4, SSM_CHUNK)
+            and cfg.dtype == cfg.param_dtype == "bfloat16",
+            f"{ZAMBA} is not at full width")
+    return _random_params(torch, device, cfg)
+
+
+def _random_params(torch, device, cfg):
+    """The model's random weights on the card from generator seed 0."""
+    from repro_torch.models import init_params
+
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -709,6 +819,30 @@ def _llama_params(torch, device):
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
     return cfg, params, n, time.perf_counter() - t0
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one decode step (rmsnorm) and one prefill at
+    S >= 2048 (all three) of ``cfg``'s model: 2 L + 1 rmsnorm and L flash
+    for the dense family; for the hybrid family 2 L + 2 n_super + 1
+    rmsnorm (every Mamba2 layer's ln and gated norm, the shared block's two
+    norms per application, the final norm), L ssm_scan and n_super flash."""
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        return {"rmsnorm": 2 * cfg.n_layers + 2 * n_super + 1,
+                "ssm_scan": cfg.n_layers, "flash_attention": n_super}
+    return {"rmsnorm": 2 * cfg.n_layers + 1, "ssm_scan": 0,
+            "flash_attention": cfg.n_layers}
+
+
+def _launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+
+    return {"rmsnorm": rn.LAUNCHES["rmsnorm"],
+            "ssm_scan": ss.LAUNCHES["ssm_scan"],
+            "flash_attention": fa.LAUNCHES["flash_attention"]}
 
 
 def _profile(torch, fn):
@@ -738,14 +872,13 @@ def _zero(counters):
             c[key] = 0
 
 
-def phase_serve_full_width(torch, device, counters, model):
+def phase_serve_full_width(torch, device, counters, model,
+                           phase="serve_full_width"):
     """ServeEngine.generate on 8 requests (prompt 512, 64 new tokens,
-    greedy) with llama3-8b at full width; the first decode steps' logits
+    greedy) with the model at full width; the first decode steps' logits
     against the same engine at impl="plain"."""
     import numpy as np
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models import init_cache
     from repro_torch.serving.engine import ServeEngine
 
@@ -762,19 +895,18 @@ def phase_serve_full_width(torch, device, counters, model):
     t0 = time.perf_counter()
     res = engine.generate(prompts, SERVE_NEW)
     wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
-                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    launches = _launches()
     steps = SERVE_PROMPT + SERVE_NEW - 1
-    want = (2 * cfg.n_layers + 1) * steps
+    want = expected_launches(cfg)["rmsnorm"] * steps
     require(launches["rmsnorm"] == want,
-            f"serve: rmsnorm launches {launches['rmsnorm']} != {want}")
-    require(launches["flash_attention"] == 0,
-            "serve: decode runs no flash attention")
+            f"{phase}: rmsnorm launches {launches['rmsnorm']} != {want}")
+    require(launches["flash_attention"] == launches["ssm_scan"] == 0,
+            f"{phase}: decode runs no flash attention and no ssm_scan")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(res.new_tokens.shape == (SERVE_BATCH, SERVE_NEW)
             and bool(((res.new_tokens >= 0)
                       & (res.new_tokens < cfg.vocab)).all()),
-            "serve: tokens out of range")
+            f"{phase}: tokens out of range")
     with torch.inference_mode():
         # 8 decode steps at the end of the prompt, under the profiler (the
         # attention reads the whole 576-slot cache whatever it holds)
@@ -783,6 +915,7 @@ def phase_serve_full_width(torch, device, counters, model):
                               dtype=torch.int64)
         prof = _profile(torch, lambda: [engine.decode(
             cache, tok, SERVE_PROMPT + i) for i in range(8)])
+        prof["device_launches_per_step"] = prof["device_launches"] / 8
         del cache
         # kernel vs plain: the first 8 decode steps from an empty cache
         plain = ServeEngine(cfg, params, max_seq=max_seq,
@@ -791,17 +924,20 @@ def phase_serve_full_width(torch, device, counters, model):
                   for _ in range(2)]
         toks = torch.as_tensor(prompts, device=device, dtype=torch.int64)
         rel = abs_err = 0.0
+        agree = []
         for i in range(8):
             got = engine.decode(caches[0], toks[:, i:i + 1], i)
             ref = plain.decode(caches[1], toks[:, i:i + 1], i)
             require(bool(torch.isfinite(got).all()),
-                    "serve: non-finite logits")
+                    f"{phase}: non-finite logits")
             rel = max(rel, _rel_err(torch, got, ref))
             abs_err = max(abs_err, _max_abs(torch, got, ref))
+            agree.append(float((got.argmax(-1) == ref.argmax(-1))
+                               .float().mean()))
         del caches
     require(rel <= MODEL_REL_TOL,
-            f"serve: logits kernel vs plain normwise rel err {rel:.3g}")
-    emit("serve_full_width", arch=LLAMA, batch=SERVE_BATCH,
+            f"{phase}: logits kernel vs plain normwise rel err {rel:.3g}")
+    emit(phase, arch=cfg.arch_id, batch=SERVE_BATCH,
          prompt=SERVE_PROMPT, new=SERVE_NEW, wall_s=wall,
          prefill_s=res.prefill_s, prefill_tokens_per_s=SERVE_BATCH
          * SERVE_PROMPT / res.prefill_s,
@@ -811,18 +947,18 @@ def phase_serve_full_width(torch, device, counters, model):
          decode_ms_per_step=1e3 * res.decode_s / (SERVE_NEW - 1),
          peak_memory_gb=peak_gb, launches=launches, expected_rmsnorm=want,
          logits_rel_err_vs_plain=rel, logits_max_abs_err_vs_plain=abs_err,
-         rel_tol=MODEL_REL_TOL, first_tokens=res.new_tokens[0, :8].tolist(),
+         argmax_agreement_vs_plain=min(agree), rel_tol=MODEL_REL_TOL,
+         first_tokens=res.new_tokens[0, :8].tolist(),
          decode_profile_8_steps=prof)
     return launches
 
 
-def phase_prefill_full_width(torch, device, counters, model):
-    """make_prefill_step on llama3-8b at B=1, S=4096: one flash launch
-    per layer; logits against impl="plain"."""
+def phase_prefill_full_width(torch, device, counters, model,
+                             phase="prefill_full_width"):
+    """make_prefill_step at B=1, S=4096: the launches of
+    :func:`expected_launches`; logits against impl="plain"."""
     import numpy as np
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch.steps import make_prefill_step
 
     cfg, params = model
@@ -837,14 +973,14 @@ def phase_prefill_full_width(torch, device, counters, model):
     logits = step(params, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
-                "flash_attention": fa.LAUNCHES["flash_attention"]}
-    want = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
-    require(launches == want, f"prefill: launches {launches} != {want}")
+    launches = _launches()
+    want = expected_launches(cfg)
+    require(launches == want, f"{phase}: launches {launches} != {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(tuple(logits.shape) == (1, PREFILL_SEQ, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
-            f"prefill: logits {tuple(logits.shape)} not finite or misshaped")
+            f"{phase}: logits {tuple(logits.shape)} not finite or "
+            f"misshaped")
     t0 = time.perf_counter()
     ref = make_prefill_step(cfg, impl="plain")(params, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -854,9 +990,9 @@ def phase_prefill_full_width(torch, device, counters, model):
     argmax_agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
     del logits, ref
     require(rel <= MODEL_REL_TOL,
-            f"prefill: logits kernel vs plain normwise rel err {rel:.3g}")
+            f"{phase}: logits kernel vs plain normwise rel err {rel:.3g}")
     prof = _profile(torch, lambda: step(params, {"tokens": tokens}))
-    emit("prefill_full_width", arch=LLAMA, batch=1, seq=PREFILL_SEQ,
+    emit(phase, arch=cfg.arch_id, batch=1, seq=PREFILL_SEQ,
          wall_s=wall, tokens_per_s=PREFILL_SEQ / wall, plain_wall_s=plain_wall,
          peak_memory_gb=peak_gb, launches=launches,
          logits_rel_err_vs_plain=rel, logits_max_abs_err_vs_plain=abs_err,
@@ -876,12 +1012,8 @@ def _lm_worker(queue) -> None:
         import torch
 
         sys.path.insert(0, str(SRC))
-        from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels import power_step as ps
-        from repro_torch.kernels import rmsnorm as rn
-
         queue.put(("ok", lm_phases(torch, torch.device("cuda"),
-                                   (ps.LAUNCHES, rn.LAUNCHES, fa.LAUNCHES))))
+                                   _counters())))
     except Exception:     # reported to the parent, which fails the run
         queue.put(("error", traceback.format_exc()))
 
@@ -906,25 +1038,39 @@ def run_lm_phases() -> list:
 
 
 def lm_phases(torch, device, counters):
-    """The kernel phases and the full-width serving path of llama3-8b."""
+    """The LM kernel phases, then the full-width serving paths of
+    llama3-8b and of zamba2-2.7b (llama's weights freed first)."""
+    import gc
+
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     rms_err, rms_times = phase_rmsnorm_kernel(torch, device)
-    fa_err, fa_times = phase_flash_kernel(torch, device)
-    cfg, params, n_params, init_s = _llama_params(torch, device)
-    emit("llama_params", arch=LLAMA, params=n_params, init_s=init_s,
-         gb=2 * n_params / 1e9)
-    serve = phase_serve_full_width(torch, device, counters, (cfg, params))
-    prefill = phase_prefill_full_width(torch, device, counters,
-                                       (cfg, params))
-    del params
-    torch.cuda.empty_cache()
+    fa_err, fa_times, fa_zamba = phase_flash_kernel(torch, device)
+    ss_err, ss_times = phase_ssm_scan_kernel(torch, device)
+    runs = {}
+    for arch, make, tag in ((LLAMA, _llama_params, ""),
+                            (ZAMBA, _zamba2_params, "_zamba2")):
+        cfg, params, n_params, init_s = make(torch, device)
+        emit("llama_params" if arch == LLAMA else "zamba2_params",
+             arch=arch, params=n_params, init_s=init_s, gb=2 * n_params / 1e9)
+        runs[arch] = (
+            phase_serve_full_width(torch, device, counters, (cfg, params),
+                                   f"serve_full_width{tag}"),
+            phase_prefill_full_width(torch, device, counters, (cfg, params),
+                                     f"prefill_full_width{tag}"))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    serve, prefill = runs[LLAMA]
+    zserve, zprefill = runs[ZAMBA]
     dec, pre = rms_times["decode"], rms_times["prefill"]
     return [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:20",
          "launches": serve["rmsnorm"], "launches_prefill": prefill["rmsnorm"],
+         "launches_zamba2": zserve["rmsnorm"],
+         "launches_prefill_zamba2": zprefill["rmsnorm"],
          "max_abs_err": rms_err, "shape": [SERVE_BATCH, 4096],
          **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                 "bound_by", "library_ms")},
@@ -933,11 +1079,33 @@ def lm_phases(torch, device, counters):
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:33",
-         "launches": prefill["flash_attention"], "max_abs_err": fa_err,
-         "shape": list(FLASH_MAIN),
+         "launches": prefill["flash_attention"],
+         "launches_zamba2": zprefill["flash_attention"],
+         "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
          **{k: fa_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+         "shape_zamba2": list(FLASH_ZAMBA),
+         **{f"{k}_zamba2": fa_zamba[k] for k in ("ms", "plain_ms", "call_ms",
+                                                 "bound_ms", "bound_by",
+                                                 "library_ms")}},
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:29",
+         "launches": zprefill["ssm_scan"], "max_abs_err": ss_err,
+         "shape": list(SSM_MAIN),
+         **{k: ss_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                      "bound_by", "library_ms")}},
     ]
+
+
+def _counters():
+    """Every kernel's launch counter."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import power_step as ps
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+
+    return (ps.LAUNCHES, rn.LAUNCHES, fa.LAUNCHES, ss.LAUNCHES)
 
 
 def sim_phases(torch, device, counters):
@@ -983,9 +1151,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import power_step as ps
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels._build import load_library
 
     device = torch.device("cuda")
@@ -1005,8 +1170,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln
                 or ln.startswith("[")])
 
-    kernels = sim_phases(torch, device,
-                         (ps.LAUNCHES, rn.LAUNCHES, fa.LAUNCHES))
+    kernels = sim_phases(torch, device, _counters())
     kernels += run_lm_phases()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

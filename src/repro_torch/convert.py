@@ -16,12 +16,17 @@ imported — and returns the port's counterpart:
 * a policy ``init_state(...)`` dict -> tensors on ``device`` (floats as
   float32, the engine's type).
 
-For the LM path, :func:`params_from_reference` takes a dense model's
-parameter pytree (``init_params``: stacked ``blocks`` leaves ``(L, ...)``)
-and returns the port's :class:`~repro_torch.models.model.DenseLM`, one
-block per layer, in ``cfg.param_dtype``; :func:`cache_from_reference`
-takes a decode cache.  A bf16 leaf (an ``ml_dtypes`` array that
-``torch.as_tensor`` rejects) goes through float32, which is lossless.
+For the LM path, :func:`params_from_reference` takes a model's parameter
+pytree (``init_params``) and returns the port's module in
+``cfg.param_dtype``: for the dense family the stacked ``blocks`` leaves
+``(L, ...)`` become a :class:`~repro_torch.models.model.DenseLM`, one
+block per layer; for the hybrid family the ``mamba`` leaves ``(n_super,
+per_super, ...)`` and the one ``shared_attn`` block become a
+:class:`~repro_torch.models.model.HybridLM` (the SSM's ``A_log``, ``D`` and
+``dt_bias`` stay fp32, as the reference keeps them whatever the model's
+type).  :func:`cache_from_reference` takes a decode cache.  A bf16 leaf
+(an ``ml_dtypes`` array that ``torch.as_tensor`` rejects) goes through
+float32, which is lossless.
 
 The tests use it so that both packages run literally the same arrays.
 """
@@ -38,7 +43,9 @@ from repro_torch.core.power import LUTTable, NodeSpec, PowerLUT, PowerState
 from repro_torch.kernels.power_step import StepTables
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, dtype_of
-from repro_torch.models.model import Block, DenseLM, require_dense
+from repro_torch.models.model import (Block, DenseLM, HybridLM, MambaBlock,
+                                      require_ported, superblock_shape)
+from repro_torch.models.ssm import SSM
 
 _LUT_FIELDS = ("state_p", "state_f", "idle_w", "p_min", "p_max", "f_min",
                "f_nom", "span", "speed", "cap_floor")
@@ -137,28 +144,56 @@ def mlp_from_reference(p, dtype, device="cpu") -> MLP:
     return MLP(t["wi"], t["wo"], t.get("wg"))
 
 
-def params_from_reference(cfg, params, device="cpu") -> DenseLM:
-    """A dense model's JAX parameter pytree -> :class:`DenseLM` in
-    ``cfg.param_dtype`` on ``device``, the stacked layers unstacked."""
-    require_dense(cfg)
+def _index(tree, *idx):
+    """One layer of a stacked parameter tree (numpy leaves)."""
+    return {k: _index(v, *idx) if isinstance(v, dict) else np.asarray(v)[idx]
+            for k, v in tree.items()}
+
+
+def _block(p, dt, device) -> Block:
+    return Block(_leaf(p["ln1"], dt, device), _leaf(p["ln2"], dt, device),
+                 attention_from_reference(p["attn"], dt, device),
+                 mlp_from_reference(p["ffn"], dt, device))
+
+
+#: SSM leaves the reference keeps in fp32 whatever the model's type
+_SSM_FP32 = ("A_log", "D", "dt_bias")
+
+
+def ssm_from_reference(p, dtype, device="cpu") -> SSM:
+    """One ``ssm_init`` dict -> :class:`~repro_torch.models.ssm.SSM`."""
+    t = {k: _leaf(v, torch.float32 if k in _SSM_FP32 else dtype, device)
+         for k, v in p.items()}
+    return SSM(t["in_proj"], t["conv"], t["A_log"], t["D"], t["dt_bias"],
+               t["out_proj"], t["norm_z"])
+
+
+def params_from_reference(cfg, params, device="cpu"):
+    """A dense or hybrid model's JAX parameter pytree -> :class:`DenseLM`
+    or :class:`HybridLM` in ``cfg.param_dtype`` on ``device``, the stacked
+    layers unstacked."""
+    require_ported(cfg)
     dt = dtype_of(cfg.param_dtype)
-    stacked = params["blocks"]
-
-    def layer(tree, i):
-        return {k: layer(v, i) if isinstance(v, dict) else np.asarray(v)[i]
-                for k, v in tree.items()}
-
-    blocks = []
-    for i in range(cfg.n_layers):
-        p = layer(stacked, i)
-        blocks.append(Block(_leaf(p["ln1"], dt, device),
-                            _leaf(p["ln2"], dt, device),
-                            attention_from_reference(p["attn"], dt, device),
-                            mlp_from_reference(p["ffn"], dt, device)))
     head = params.get("lm_head")
-    return DenseLM(_leaf(params["embed"], dt, device), blocks,
-                   _leaf(params["final_norm"], dt, device),
-                   None if head is None else _leaf(head, dt, device))
+    head = None if head is None else _leaf(head, dt, device)
+    embed = _leaf(params["embed"], dt, device)
+    final = _leaf(params["final_norm"], dt, device)
+    if cfg.family == "hybrid":
+        n_super, per_super = superblock_shape(cfg)
+
+        def mamba_block(i, j):
+            p = _index(params["mamba"], i, j)
+            return MambaBlock(_leaf(p["ln"], dt, device),
+                              ssm_from_reference(p["ssm"], dt, device))
+
+        mamba = [[mamba_block(i, j) for j in range(per_super)]
+                 for i in range(n_super)]
+        return HybridLM(embed, mamba,
+                        _block(params["shared_attn"], dt, device), final,
+                        head)
+    blocks = [_block(_index(params["blocks"], i), dt, device)
+              for i in range(cfg.n_layers)]
+    return DenseLM(embed, blocks, final, head)
 
 
 def cache_from_reference(cache, device="cpu"):

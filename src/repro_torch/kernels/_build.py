@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu")
+_SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu",
+            "ssm_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: ``--fmad=false`` keeps every multiply and add rounding on its own (no
@@ -77,6 +78,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_F] + \
         [_I] * 3 + [_P]
     lib.repro_flash_attention.restype = _I
+    lib.repro_ssm_scan.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.repro_ssm_scan.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -32,7 +32,9 @@
 // q, k, v and o (0.025 ms at 3.35 TB/s).  This first kernel runs its
 // products on the fp32 pipes (no wgmma, no TMA), with one block an SM for
 // dh = 128, so it is far from that bound; a tensor-core redesign is later
-// work.
+// work.  Head dims 16, 32, 64, 80, 128 and 256 are built: dh = 80 is
+// zamba2's (2560 / 32 heads), with 5 accumulator columns a thread and 79 KB
+// of shared memory, less than dh = 128 takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -269,6 +271,8 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int 
       return launch<T, 32>(q, k, v, o, B, H, group, Sq, Sk, scale, causal, window, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, group, Sq, Sk, scale, causal, window, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, H, group, Sq, Sk, scale, causal, window, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, group, Sq, Sk, scale, causal, window, stream);
     case 256:
@@ -282,7 +286,7 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int 
 
 // q, o: (B, H, Sq, dh); k, v: (B, Hkv, Sk, dh); contiguous device tensors of
 // one type (dtype 0 = float32, 1 = bfloat16).  Sq and Sk multiples of 64, H a
-// multiple of Hkv, dh one of 16, 32, 64, 128, 256; window 0 means none.
+// multiple of Hkv, dh one of 16, 32, 64, 80, 128, 256; window 0 means none.
 // Launches on `stream`; returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int B,

@@ -35,7 +35,7 @@ from repro_torch.kernels.power_step import resolve_impl
 BLOCK_Q = 64
 BLOCK_KV = 64
 #: Head dims the kernel is built for.
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: Score of a masked query/key pair (both JAX forms use it).
 MASKED = -1e30
 

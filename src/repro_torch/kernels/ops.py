@@ -1,8 +1,9 @@
 """Model-layout wrappers around the LM kernels, as the reference's
 ``kernels/ops.py``: q ``(B, S, H, dh)`` and k/v ``(B, S, Hkv, dh)`` are
-swapped to the kernel's ``(B, H, S, dh)`` and back.  ``impl`` picks the
-implementation as every dispatch of the port does (``None``: the kernel
-for CUDA tensors, the plain version for CPU ones).
+swapped to the kernel's ``(B, H, S, dh)`` and back; ``ssm_scan`` takes
+the kernel's own layout, as the reference's wrapper does.  ``impl``
+picks the implementation as every dispatch of the port does (``None``:
+the kernel for CUDA tensors, the plain version for CPU ones).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssm_scan as _ss
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -31,3 +33,14 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5,
     """x ``(..., d)``, gamma ``(d,)`` -> x's shape and type."""
     return _rn.rmsnorm(x.contiguous(), gamma.contiguous(), eps, layer_form,
                        impl)
+
+
+def ssm_scan(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *,
+             chunk: int = _ss.DEFAULT_CHUNK,
+             impl: Optional[str] = None) -> torch.Tensor:
+    """x ``(B, H, S, P)``; a/dt ``(B, H, S)``; Bm/Cm ``(B, S, N)`` -> y
+    ``(B, H, S, P)`` fp32."""
+    return _ss.ssm_scan(x.contiguous(), a.contiguous(), dt.contiguous(),
+                        Bm.contiguous(), Cm.contiguous(), chunk=chunk,
+                        impl=impl)

@@ -1,7 +1,9 @@
 """Serving CLI of the port, LLM mode: batched prefill + decode of a dense
-model with random weights from a seed, through :class:`ServeEngine`::
+or hybrid model with random weights from a seed, through
+:class:`ServeEngine`::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full
 
 It runs on the card by default and fails without one; ``--device cpu``
 runs it on the CPU (``--smoke``, the default, is the reduced config).

@@ -3,13 +3,15 @@ transcribed from the reference's ``serving/engine.py``.
 
 ``ServeEngine`` keeps aligned batch lanes (all lanes decode the same
 position).  Prefill runs the single-token decode step over the prompt's
-positions, as the reference's scan does, so a request of ``S`` prompt
-tokens and ``n`` new ones takes ``S + n - 1`` decode steps, each with
-``2 L + 1`` RMSNorm launches.  The reference donates its cache to each
-jitted step; the port allocates it once per request and every step
-writes it in place.  Tokens stay on the device until the request ends;
-the result carries the host wall time of its prefill and decode parts
-(one synchronisation after prefill on the card splits them).
+positions, as the reference's scan does, for every family (KV caches and
+Mamba2 states alike), so a request of ``S`` prompt tokens and ``n`` new
+ones takes ``S + n - 1`` decode steps, each with ``2 L + 1`` RMSNorm
+launches (dense) or ``2 L + 2 n_super + 1`` (hybrid).  The reference
+donates its cache to each jitted step; the port allocates it once per
+request and every step writes it in place.  Tokens stay on the device
+until the request ends; the result carries the host wall time of its
+prefill and decode parts (one synchronisation after prefill on the card
+splits them).
 
 The engine runs on the card unless ``device="cpu"`` is passed; without a
 CUDA device ``device=None`` raises.
@@ -27,7 +29,7 @@ import torch
 from repro_torch.backends.engine import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (decode_step, init_cache,
-                                      require_dense)
+                                      require_ported)
 
 
 @dataclass
@@ -46,7 +48,7 @@ class ServeEngine:
         if cfg.family == "encoder":
             raise ValueError("encoder-only architectures have no decode "
                              "step")
-        require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params.to(self.device)

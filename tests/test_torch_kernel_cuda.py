@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: ``power_step`` (with ``waterfill``), ``rmsnorm`` and
-``flash_attention``.  Every test here needs an NVIDIA GPU with ``nvcc``
-and skips elsewhere; the file imports neither ``jax`` nor ``repro``, so
-it runs on the GPU machine as it is:
+the card: ``power_step`` (with ``waterfill``), ``rmsnorm``,
+``flash_attention`` and ``ssm_scan``.  Every test here needs an NVIDIA
+GPU with ``nvcc`` and skips elsewhere; the file imports neither ``jax``
+nor ``repro``, so it runs on the GPU machine as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 """
@@ -19,6 +19,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import power_step as ps
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels._build import check, load_library
 from repro_torch.models import forward, init_params
 
@@ -142,6 +143,8 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, layer_form):
     (1, 2, 2, 192, 16, False, 100, torch.float32),   # window, full
     (1, 2, 1, 128, 256, True, 0, torch.bfloat16),    # widest head
     (1, 32, 8, 2048, 128, True, 0, torch.bfloat16),  # llama3-8b heads
+    (1, 32, 32, 2048, 80, True, 0, torch.bfloat16),  # zamba2 heads
+    (1, 2, 1, 192, 80, False, 100, torch.float32),   # dh 80, window
 ])
 def test_flash_kernel_matches_plain(cuda_device, b, h, hkv, s, dh, causal,
                                     window, dtype):
@@ -209,4 +212,83 @@ def test_model_forward_on_card_counts_launches(cuda_device):
         want, _ = forward(cfg, params, {"tokens": tokens}, impl="plain")
     assert after == (before[0] + 2 * cfg.n_layers + 1,
                      before[1] + cfg.n_layers)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ ssm_scan
+#: kernel vs plain: the same fp32 arithmetic in the same order (bf16
+#: inputs are read as fp32 exactly); only exp may differ by an ulp
+SSM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _scan_inputs(b, h, s, p, n, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device=device)
+    return (rnd(b, h, s, p).to(dtype), -rnd(b, h, s).abs() * 0.2,
+            rnd(b, h, s).abs(), rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype))
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,dtype", [
+    (1, 80, 1024, 64, 64, 128, torch.bfloat16),   # zamba2 heads
+    (1, 80, 1024, 64, 64, 128, torch.float32),
+    (2, 3, 128, 16, 8, 64, torch.float32),        # N < 32: zero lanes
+    (1, 2, 192, 32, 256, 64, torch.bfloat16),     # widest state
+    (1, 1, 100, 5, 40, 100, torch.float32),       # ragged P, S, N
+])
+def test_ssm_scan_kernel_matches_plain(cuda_device, b, h, s, p, n, chunk,
+                                       dtype):
+    args = _scan_inputs(b, h, s, p, n, dtype, cuda_device, seed=n)
+    before = ss.LAUNCHES["ssm_scan"]
+    got = ss.ssm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssm_scan"] == before + 1
+    want = ss.ssm_scan(*args, chunk=chunk, impl="plain")
+    assert got.dtype == torch.float32 and got.shape == (b, h, s, p)
+    torch.testing.assert_close(got, want, rtol=SSM_TOL[dtype],
+                               atol=SSM_TOL[dtype])
+
+
+def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda_device):
+    x, a, dt, bm, cm = _scan_inputs(1, 2, 64, 8, 300, torch.float32,
+                                    cuda_device)
+    with pytest.raises(ValueError, match="state of 1 to 256"):
+        ss.ssm_scan(x, a, dt, bm, cm)
+    x, a, dt, bm, cm = _scan_inputs(1, 2, 64, 8, 16, torch.float32,
+                                    cuda_device)
+    with pytest.raises(ValueError, match="float32 a and dt"):
+        ss.ssm_scan(x, a.bfloat16(), dt, bm, cm)
+    with pytest.raises(ValueError, match="one type"):
+        ss.ssm_scan(x.bfloat16(), a, dt, bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan(x.transpose(2, 3).contiguous().transpose(2, 3), a, dt,
+                    bm, cm)
+    lib = load_library().lib
+    code = lib.repro_ssm_scan(x.data_ptr(), a.data_ptr(), dt.data_ptr(),
+                              bm.data_ptr(), cm.data_ptr(), x.data_ptr(), 1,
+                              2, 64, 8, 300, 0,
+                              torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="ssm_scan kernel launch failed"):
+        check(code, "ssm_scan")
+
+
+def test_hybrid_forward_on_card_counts_launches(cuda_device):
+    """The zamba2 smoke model's forward at S=2048 on the card: one
+    ssm_scan per Mamba2 layer, one flash per super-block, 2 L + 2 n_super
+    + 1 rmsnorm; logits close to the plain path's."""
+    cfg = get_smoke("zamba2-2.7b")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    n_super = cfg.n_layers // cfg.attn_every
+    before = (rn.LAUNCHES["rmsnorm"], ss.LAUNCHES["ssm_scan"],
+              fa.LAUNCHES["flash_attention"])
+    with torch.inference_mode():
+        got, _ = forward(cfg, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        after = (rn.LAUNCHES["rmsnorm"], ss.LAUNCHES["ssm_scan"],
+                 fa.LAUNCHES["flash_attention"])
+        want, _ = forward(cfg, params, {"tokens": tokens}, impl="plain")
+    assert after == (before[0] + 2 * cfg.n_layers + 2 * n_super + 1,
+                     before[1] + cfg.n_layers, before[2] + n_super)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

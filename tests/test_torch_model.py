@@ -232,8 +232,7 @@ def test_init_params_shapes_and_seed(arch):
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "chameleon-34b",
-                                  "zamba2-2.7b", "xlstm-350m",
-                                  "hubert-xlarge"])
+                                  "xlstm-350m", "hubert-xlarge"])
 def test_other_families_are_not_ported(arch):
     cfg = configs.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -123,7 +123,7 @@ def test_encoder_rejected():
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "chameleon-34b",
-                                  "zamba2-2.7b", "xlstm-350m"])
+                                  "xlstm-350m"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(get_smoke(arch), None, max_seq=8, max_batch=1,
