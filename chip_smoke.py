@@ -15,12 +15,13 @@ port's two paths:
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
   against the same entry point at ``impl="plain"`` on the card
-  (``rmsnorm`` and ``flash_attention``);
+  (``rmsnorm``, and ``flash_attention`` on its tensor-core kernel);
 * the hybrid LM serving path at full width, zamba2-2.7b (54 Mamba2
   layers, the shared attention block after every 6th), random bf16
   weights from a seed, through the same two entry points after
   llama3-8b's weights are freed (``rmsnorm``, ``ssm_scan`` on the SSD
-  core of every Mamba2 layer's prefill, ``flash_attention`` at dh=80).
+  core of every Mamba2 layer's prefill, ``flash_attention`` at dh=80 on
+  its SIMT kernel, which keeps the prefill bit-equal to the plain path).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; then a ``kernels`` line, the
@@ -58,10 +59,12 @@ BF16_TENSOR_OPS_PER_S = 989e12
 #: bf16 to a flipped rounding of p or of the output.
 LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: Whole-model logits, kernel path vs plain path (bf16): normwise
-#: relative error.  Every op but the kernels is the same on both paths,
-#: and a flipped bf16 rounding (2^-8 relative) in one layer's attention
-#: output spreads through the 32 layers without growing past a few of
-#: them.
+#: relative error.  Every op but the kernels is the same on both paths.  A
+#: flash that is not bit-equal to the plain loop (the tensor-core kernel,
+#: or the plain loop itself at another kv tile) moves the full-width
+#: prefill logits by the model's bf16 rounding floor: 1.8% for llama3-8b,
+#: 3.3% for zamba2-2.7b (``flash_probe.py`` on an H100), so zamba2's
+#: prefill keeps the bit-equal SIMT flash kernel.
 MODEL_REL_TOL = 2e-2
 #: ssm_scan kernel vs plain (rtol and atol): the same fp32 arithmetic in
 #: the same order, bf16 inputs read as fp32 exactly; only exp may differ
@@ -656,62 +659,87 @@ def _causal_pairs(s: int, causal: bool, window: int) -> int:
 
 
 def phase_flash_kernel(torch, device):
-    """flash_attention kernel vs plain at llama3-8b's prefill shape (B=1,
+    """flash_attention kernels vs plain at llama3-8b's prefill shape (B=1,
     H=32, Hkv=8, S=4096, dh=128, bf16, causal), zamba2-2.7b's (H=Hkv=32,
-    dh=80) and small ones (MHA, fp32, full, window); times at both
-    prefill shapes, with SDPA as the library yardstick (timed here
-    only)."""
+    dh=80) and small ones (MHA, fp32, full, window), and the tensor-core
+    kernel's edges (a half-empty last query tile, a half-full last kv
+    tile, dh=80 full and windowed, dh=64).  Each case runs the variant
+    ``kernel_variant`` names (the table's, or the one a case forces: the
+    tensor-core kernel at dh=80, which zamba2's path does not take), read
+    back from the launch counters.  Times at both prefill shapes for both
+    kernels, with SDPA as the library yardstick (timed here only)."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
-    cases = [(FLASH_MAIN, "bfloat16", True, 0),
-             (FLASH_ZAMBA, "bfloat16", True, 0),
-             ((1, 4, 4, 256, 64), "float32", False, 0),
-             ((2, 8, 2, 512, 64), "bfloat16", True, 0),
-             ((1, 4, 2, 1024, 128), "bfloat16", True, 256),
-             ((1, 2, 2, 256, 32), "float32", True, 0),
-             ((1, 2, 1, 192, 256), "bfloat16", False, 100)]
-    worst = {}
+    cases = [(FLASH_MAIN, "bfloat16", True, 0, None),
+             (FLASH_ZAMBA, "bfloat16", True, 0, None),
+             ((1, 4, 4, 256, 64), "float32", False, 0, None),
+             ((2, 8, 2, 512, 64), "bfloat16", True, 0, None),
+             ((1, 4, 2, 1024, 128), "bfloat16", True, 256, None),
+             ((1, 2, 2, 256, 32), "float32", True, 0, None),
+             ((1, 2, 1, 192, 256), "bfloat16", False, 100, None),
+             ((2, 8, 2, 192, 128), "bfloat16", True, 0, None),
+             ((1, 4, 4, 256, 64), "bfloat16", True, 0, None),
+             (FLASH_ZAMBA, "bfloat16", True, 0, "tc"),
+             ((1, 4, 1, 320, 80), "bfloat16", False, 0, "tc"),
+             ((1, 4, 2, 1024, 80), "bfloat16", True, 200, "tc")]
+    worst, variants = {}, {}
     inputs = {}
-    for (b, h, hkv, s, dh), dtype, causal, window in cases:
+    for (b, h, hkv, s, dh), dtype, causal, window, force in cases:
         td = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(td)
                    for shape in ((b, h, s, dh), (b, hkv, s, dh),
                                  (b, hkv, s, dh)))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        before = dict(fa.LAUNCHES)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      variant=force)
+        ran = {key: fa.LAUNCHES[key] - before[key] for key in before}
         want = fa.flash_attention(q, k, v, causal=causal, window=window,
                                   impl="plain")
         err = _max_abs(torch, got, want)
-        name = f"{b}x{h}/{hkv}x{s}x{dh} {dtype} causal={causal} w={window}"
+        name = (f"{b}x{h}/{hkv}x{s}x{dh} {dtype} causal={causal} "
+                f"w={window}" + (f" {force}" if force else ""))
+        variant = "tc" if ran["flash_attention_tc"] else "simt"
+        expect = fa.kernel_variant(td, dh, force)
+        require(ran["flash_attention"] == 1 and variant == expect,
+                f"flash {name}: launches {ran}, expected one {expect} "
+                f"launch")
         require(_within(torch, got, want, dtype),
                 f"flash {name}: kernel vs plain max abs err {err:.3g}")
         worst[name] = err
+        variants[name] = variant
         if (b, h, hkv, s, dh) in (FLASH_MAIN, FLASH_ZAMBA):
             inputs[(b, h, hkv, s, dh)] = (q, k, v)
     torch.cuda.synchronize()
     times = _flash_times(torch, FLASH_MAIN, *inputs.pop(FLASH_MAIN))
     zamba = _flash_times(torch, FLASH_ZAMBA, *inputs.pop(FLASH_ZAMBA))
-    emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, shape=FLASH_MAIN,
-         **times, shape_zamba2=FLASH_ZAMBA, zamba2=zamba)
+    emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, variants=variants,
+         shape=FLASH_MAIN, **times, shape_zamba2=FLASH_ZAMBA, zamba2=zamba)
     return max(worst.values()), times, zamba
 
 
 def _flash_times(torch, shape, q, k, v):
-    """Kernel, plain and SDPA device ms at one causal bf16 shape, the
-    kernel's call ms, and the bound."""
+    """Device ms at one causal bf16 shape of both kernels (``ms`` is the
+    one the table routes the shape to, ``variant``), the plain version
+    and SDPA; the routed kernel's call ms; and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     b, h, hkv, s, dh = shape
-    calls = {"ms": lambda: fa.flash_attention(q, k, v),
+    calls = {"tc_ms": lambda: fa.flash_attention_cuda(q, k, v, variant="tc"),
+             "simt_ms": lambda: fa.flash_attention_cuda(q, k, v,
+                                                        variant="simt"),
              "plain_ms": lambda: fa.flash_attention(q, k, v, impl="plain"),
              "library_ms": lambda: F.scaled_dot_product_attention(
                  q, k, v, is_causal=True, enable_gqa=True)}
-    times = {key: device_ms(torch, fn, 3 if key == "plain_ms" else 10)
+    times = {key: device_ms(torch, fn, 10 if key in ("tc_ms", "library_ms")
+                            else 3)
              for key, fn in calls.items()}
-    times["call_ms"] = call_ms(torch, calls["ms"], 10)
+    times["variant"] = fa.kernel_variant(q.dtype, dh)
+    times["ms"] = times[f"{times['variant']}_ms"]
+    times["call_ms"] = call_ms(torch, lambda: fa.flash_attention(q, k, v), 10)
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                          enable_gqa=True)
     times["library_max_abs_diff"] = _max_abs(torch, fa.flash_attention(
@@ -720,6 +748,7 @@ def _flash_times(torch, shape, q, k, v):
     nbytes = 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
     times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
     times["tflops"] = flops / (times["ms"] * 1e9)
+    times["tc_tflops"] = flops / (times["tc_ms"] * 1e9)
     return times
 
 
@@ -826,13 +855,25 @@ def expected_launches(cfg) -> dict:
     S >= 2048 (all three) of ``cfg``'s model: 2 L + 1 rmsnorm and L flash
     for the dense family; for the hybrid family 2 L + 2 n_super + 1
     rmsnorm (every Mamba2 layer's ln and gated norm, the shared block's two
-    norms per application, the final norm), L ssm_scan and n_super flash."""
+    norms per application, the final norm), L ssm_scan and n_super flash.
+    Every flash launch runs the kernel ``kernel_variant`` routes the
+    model's (dtype, dh) to: all of them on the tensor-core kernel
+    (``flash_attention_tc``) for llama3-8b (bf16, dh 128), none for
+    zamba2-2.7b (bf16, dh 80)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel_variant
+
     if cfg.family == "hybrid":
         n_super = cfg.n_layers // cfg.attn_every
-        return {"rmsnorm": 2 * cfg.n_layers + 2 * n_super + 1,
+        want = {"rmsnorm": 2 * cfg.n_layers + 2 * n_super + 1,
                 "ssm_scan": cfg.n_layers, "flash_attention": n_super}
-    return {"rmsnorm": 2 * cfg.n_layers + 1, "ssm_scan": 0,
-            "flash_attention": cfg.n_layers}
+    else:
+        want = {"rmsnorm": 2 * cfg.n_layers + 1, "ssm_scan": 0,
+                "flash_attention": cfg.n_layers}
+    tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
+    want["flash_attention_tc"] = want["flash_attention"] if tc else 0
+    return want
 
 
 def _launches():
@@ -842,7 +883,8 @@ def _launches():
 
     return {"rmsnorm": rn.LAUNCHES["rmsnorm"],
             "ssm_scan": ss.LAUNCHES["ssm_scan"],
-            "flash_attention": fa.LAUNCHES["flash_attention"]}
+            "flash_attention": fa.LAUNCHES["flash_attention"],
+            "flash_attention_tc": fa.LAUNCHES["flash_attention_tc"]}
 
 
 def _profile(torch, fn):
@@ -900,7 +942,8 @@ def phase_serve_full_width(torch, device, counters, model,
     want = expected_launches(cfg)["rmsnorm"] * steps
     require(launches["rmsnorm"] == want,
             f"{phase}: rmsnorm launches {launches['rmsnorm']} != {want}")
-    require(launches["flash_attention"] == launches["ssm_scan"] == 0,
+    require(launches["flash_attention"] == launches["flash_attention_tc"]
+            == launches["ssm_scan"] == 0,
             f"{phase}: decode runs no flash attention and no ssm_scan")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(res.new_tokens.shape == (SERVE_BATCH, SERVE_NEW)
@@ -1077,17 +1120,17 @@ def lm_phases(torch, device, counters):
          **{f"{k}_prefill": pre[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "library_ms")}},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+         "source_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:33",
          "launches": prefill["flash_attention"],
+         "launches_tc": prefill["flash_attention_tc"],
          "launches_zamba2": zprefill["flash_attention"],
+         "launches_tc_zamba2": zprefill["flash_attention_tc"],
          "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
-         **{k: fa_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+         **{k: fa_times[k] for k in FLASH_KEYS},
          "shape_zamba2": list(FLASH_ZAMBA),
-         **{f"{k}_zamba2": fa_zamba[k] for k in ("ms", "plain_ms", "call_ms",
-                                                 "bound_ms", "bound_by",
-                                                 "library_ms")}},
+         **{f"{k}_zamba2": fa_zamba[k] for k in FLASH_KEYS}},
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:29",
@@ -1096,6 +1139,11 @@ def lm_phases(torch, device, counters):
          **{k: ss_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                      "bound_by", "library_ms")}},
     ]
+
+
+#: What the kernels line keeps of each flash timing.
+FLASH_KEYS = ("variant", "ms", "tc_ms", "simt_ms", "plain_ms", "call_ms",
+              "bound_ms", "bound_by", "library_ms", "tflops", "tc_tflops")
 
 
 def _counters():
@@ -1165,13 +1213,15 @@ def main() -> int:
     t0 = time.perf_counter()
     kl = load_library()
     emit("build", seconds=time.perf_counter() - t0, nvcc_s=kl.build_s,
-         library=str(kl.path.relative_to(ROOT)),
+         source_s=kl.source_s, library=str(kl.path.relative_to(ROOT)),
          ptxas=[ln.strip() for ln in kl.log.splitlines()
                 if "registers" in ln or "spill" in ln
                 or ln.startswith("[")])
 
     kernels = sim_phases(torch, device, _counters())
     kernels += run_lm_phases()
+    for entry in kernels:    # each source's nvcc seconds in this run
+        entry["build_s"] = kl.source_s.get(Path(entry["source"]).name)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

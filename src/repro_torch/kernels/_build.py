@@ -20,12 +20,13 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu",
-            "ssm_scan.cu")
+            "flash_attention_tc.cu", "ssm_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: ``--fmad=false`` keeps every multiply and add rounding on its own (no
@@ -47,6 +48,7 @@ class KernelLibrary(NamedTuple):
     path: Path
     build_s: float      # nvcc wall seconds (0.0 when loaded as built)
     log: str            # nvcc/ptxas output of this process's build
+    source_s: Dict[str, float]  # each source's nvcc seconds (empty if built)
 
 
 def find_nvcc() -> str:
@@ -78,32 +80,41 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_F] + \
         [_I] * 3 + [_P]
     lib.repro_flash_attention.restype = _I
+    lib.repro_flash_attention_tc.argtypes = [_P] * 4 + [_I] * 6 + [_F] + \
+        [_I] * 2 + [_P]
+    lib.repro_flash_attention_tc.restype = _I
     lib.repro_ssm_scan.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.repro_ssm_scan.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 
 
+def _compile(nvcc: str, name: str, obj: Path):
+    """One source to one object: (output, return code, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                           str(_CSRC / name)], capture_output=True, text=True)
+    return proc.stdout + proc.stderr, proc.returncode, time.perf_counter() - t0
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library, once per process."""
     path = BUILD_DIR / f"libreprotorch-{_digest()}.so"
-    build_s, log = 0.0, ""
+    build_s, log, source_s = 0.0, "", {}
     if not path.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = find_nvcc()
         tag = f"{path.stem}.{os.getpid()}"
         objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in _SOURCES]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                                   str(_CSRC / name)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for name, obj in zip(_SOURCES, objs)]
-        outs = [(name, p.communicate()[0], p.returncode)
-                for name, p in zip(_SOURCES, procs)]
-        log = "".join(f"[{name}]\n{out}" for name, out, _ in outs)
-        failed = [name for name, _, rc in outs if rc != 0]
+        with ThreadPoolExecutor(len(_SOURCES)) as pool:
+            outs = list(pool.map(lambda a: _compile(nvcc, *a),
+                                 zip(_SOURCES, objs)))
+        log = "".join(f"[{name}]\n{out}"
+                      for name, (out, _, _) in zip(_SOURCES, outs))
+        source_s = {name: sec for name, (_, _, sec) in zip(_SOURCES, outs)}
+        failed = [name for name, (_, rc, _) in zip(_SOURCES, outs) if rc]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -119,7 +130,8 @@ def load_library() -> KernelLibrary:
         os.replace(tmp, path)        # atomic: concurrent builders agree
     lib = ctypes.CDLL(str(path))
     _declare(lib)
-    return KernelLibrary(lib=lib, path=path, build_s=build_s, log=log)
+    return KernelLibrary(lib=lib, path=path, build_s=build_s, log=log,
+                         source_s=source_s)
 
 
 def check(code: int, what: str) -> None:

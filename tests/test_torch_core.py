@@ -3,8 +3,9 @@
 Same seed, same graphs and LUTs; the geometry builders give equal
 arrays; the ILP gives the same assignments; ``convert.from_reference``
 carries objects across faithfully.  Also: no module of ``repro_torch``,
-and not ``chip_smoke.py``, imports ``jax`` or anything of ``repro``;
-``chip_smoke.py`` fails without a GPU and outside the repository.
+and not ``chip_smoke.py`` or ``flash_probe.py``, imports ``jax`` or
+anything of ``repro``; ``chip_smoke.py`` fails without a GPU and outside
+the repository, ``flash_probe.py`` without a GPU.
 """
 
 import os
@@ -199,6 +200,7 @@ lm = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
       "repro_torch.launch.serve"}}
 assert lm <= set(names), sorted(lm - set(names))
 import chip_smoke
+import flash_probe
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -208,8 +210,8 @@ assert not bad, bad
 
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
-    (the LM path's among them) and ``chip_smoke.py`` loads no ``jax``
-    and no ``repro``."""
+    (the LM path's among them), ``chip_smoke.py`` and ``flash_probe.py``
+    loads no ``jax`` and no ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],
@@ -235,3 +237,10 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
         proc = _run_smoke(cwd, script)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_flash_probe_fails_without_gpu():
+    """No CUDA device: a nonzero exit and no measurement line."""
+    proc = _run_smoke(ROOT, ROOT / "flash_probe.py")
+    assert proc.returncode != 0
+    assert '"probe"' not in proc.stdout

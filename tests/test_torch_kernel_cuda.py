@@ -7,6 +7,8 @@ nor ``repro``, so it runs on the GPU machine as it is:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -135,26 +137,39 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, layer_form):
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype", [
-    (1, 4, 4, 128, 64, False, 0, torch.float32),     # MHA, full
-    (2, 8, 2, 256, 64, True, 0, torch.bfloat16),     # GQA 4:1
-    (1, 4, 1, 128, 128, True, 0, torch.float32),     # MQA
-    (1, 4, 2, 1024, 128, True, 256, torch.bfloat16),  # sliding window
-    (1, 2, 2, 192, 16, False, 100, torch.float32),   # window, full
-    (1, 2, 1, 128, 256, True, 0, torch.bfloat16),    # widest head
-    (1, 32, 8, 2048, 128, True, 0, torch.bfloat16),  # llama3-8b heads
-    (1, 32, 32, 2048, 80, True, 0, torch.bfloat16),  # zamba2 heads
-    (1, 2, 1, 192, 80, False, 100, torch.float32),   # dh 80, window
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype,variant", [
+    (1, 4, 4, 128, 64, False, 0, torch.float32, None),     # MHA, full
+    (2, 8, 2, 256, 64, True, 0, torch.bfloat16, None),     # GQA 4:1
+    (1, 4, 1, 128, 128, True, 0, torch.float32, None),     # MQA
+    (1, 4, 2, 1024, 128, True, 256, torch.bfloat16, None),  # sliding window
+    (1, 2, 2, 192, 16, False, 100, torch.float32, None),   # window, full
+    (1, 2, 1, 128, 256, True, 0, torch.bfloat16, None),    # widest head
+    (1, 32, 8, 2048, 128, True, 0, torch.bfloat16, None),  # llama3-8b heads
+    (1, 32, 32, 2048, 80, True, 0, torch.bfloat16, None),  # zamba2 heads
+    (1, 2, 1, 192, 80, False, 100, torch.float32, None),   # dh 80, window
+    # the tensor-core kernel's edges (128-row query and kv tiles)
+    (2, 8, 2, 192, 128, True, 0, torch.bfloat16, None),    # half-empty q tile
+    (1, 4, 1, 320, 80, False, 0, torch.bfloat16, "tc"),    # half-full kv tile
+    (1, 4, 2, 1024, 80, True, 200, torch.bfloat16, "tc"),  # dh 80, window
+    (1, 4, 4, 256, 64, True, 0, torch.bfloat16, None),     # dh 64
+    (1, 32, 32, 2048, 80, True, 0, torch.bfloat16, "tc"),  # zamba2 heads
 ])
 def test_flash_kernel_matches_plain(cuda_device, b, h, hkv, s, dh, causal,
-                                    window, dtype):
+                                    window, dtype, variant):
     gen = torch.Generator(device=cuda_device).manual_seed(s + dh)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
                for shape in ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
-    before = fa.LAUNCHES["flash_attention"]
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    before = dict(fa.LAUNCHES)
+    if variant is None:
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      variant=variant)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    tc = fa.kernel_variant(dtype, dh, variant) == "tc"
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert (fa.LAUNCHES["flash_attention_tc"]
+            == before["flash_attention_tc"] + tc)
     want = fa.flash_attention(q, k, v, causal=causal, window=window,
                               impl="plain")
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
@@ -195,6 +210,24 @@ def test_launch_failure_raises(cuda_device):
                                      64, 48, 0.125, 1, 0, 0, stream)
     with pytest.raises(RuntimeError, match="flash_attention kernel launch"):
         check(code, "flash_attention")
+    code = lib.repro_flash_attention_tc(x.data_ptr(), x.data_ptr(),
+                                        x.data_ptr(), x.data_ptr(), 1, 1, 1,
+                                        64, 64, 48, 0.125, 1, 0, stream)
+    assert code != 0
+
+
+def test_tc_flash_raises_on_what_tma_cannot_read(cuda_device):
+    """A bf16 dh-128 call launches the tensor-core kernel or raises: storage
+    that TMA cannot read (not 16-byte aligned) raises, it does not fall back
+    to the SIMT kernel or the plain loop."""
+    q = torch.randn(1, 2, 128, 128, device=cuda_device).bfloat16()
+    odd = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(q.shape)
+    odd.copy_(q)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(odd, q, q)
+    assert fa.LAUNCHES == before
 
 
 def test_model_forward_on_card_counts_launches(cuda_device):
@@ -213,6 +246,29 @@ def test_model_forward_on_card_counts_launches(cuda_device):
     assert after == (before[0] + 2 * cfg.n_layers + 1,
                      before[1] + cfg.n_layers)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_model_forward_routes_flash_to_tensor_cores(cuda_device):
+    """The llama smoke model in bf16 at dh=64 (its width otherwise): the
+    forward at S=2048 runs every flash launch on the tensor-core kernel,
+    with logits within 2e-2 normwise of the plain path's."""
+    cfg = replace(get_smoke("llama3-8b"), dtype="bfloat16",
+                  param_dtype="bfloat16", head_dim=64)
+    assert fa.kernel_variant(torch.bfloat16, cfg.dh) == "tc"
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    before = dict(fa.LAUNCHES)
+    with torch.inference_mode():
+        got, _ = forward(cfg, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        after = dict(fa.LAUNCHES)
+        want, _ = forward(cfg, params, {"tokens": tokens}, impl="plain")
+    assert after["flash_attention"] - before["flash_attention"] == \
+        after["flash_attention_tc"] - before["flash_attention_tc"] == \
+        cfg.n_layers
+    rel = (got.double() - want.double()).norm() / want.double().norm()
+    assert float(rel) <= 2e-2
 
 
 # ------------------------------------------------------------ ssm_scan

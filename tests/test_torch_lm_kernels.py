@@ -172,3 +172,77 @@ def test_cpu_tensors_take_the_plain_version_and_never_launch():
         fa.flash_attention(q, q, q, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         rn.rmsnorm(x, g, impl="triton")
+
+
+# ------------------------------------------------- the tensor-core kernel
+@pytest.mark.parametrize("dtype,dh,variant", [
+    *[(torch.float32, dh, "simt") for dh in (16, 32, 64, 80, 128, 256)],
+    *[(torch.bfloat16, dh, "tc") for dh in (64, 128)],
+    *[(torch.bfloat16, dh, "simt") for dh in (16, 32, 80, 256)],
+    (torch.bfloat16, 48, None), (torch.float32, 96, None),
+    (torch.bfloat16, 512, None), (torch.float16, 128, None),
+])
+def test_flash_kernel_variant_routing(dtype, dh, variant):
+    """bf16 at dh 64 and 128 (the dense models' path) goes to the
+    tensor-core kernel; fp32 (TF32 on the tensor cores would break its
+    tolerance), bf16 at dh 16/32/256, and bf16 at dh 80 (zamba2's path,
+    kept bit-equal to its plain path) to the SIMT kernel; any other pair
+    raises."""
+    if variant is None:
+        with pytest.raises(ValueError, match="dh"):
+            fa.kernel_variant(dtype, dh)
+    else:
+        assert fa.kernel_variant(dtype, dh) == variant
+
+
+@pytest.mark.parametrize("dtype,dh,force,ok", [
+    (torch.bfloat16, 80, "tc", True), (torch.bfloat16, 64, "tc", True),
+    (torch.bfloat16, 128, "simt", True), (torch.float32, 128, "simt", True),
+    (torch.float32, 80, "tc", False), (torch.bfloat16, 256, "tc", False),
+    (torch.bfloat16, 32, "tc", False), (torch.bfloat16, 128, "mma", False),
+])
+def test_flash_kernel_variant_forced(dtype, dh, force, ok):
+    """A forced variant runs if that kernel takes the pair, else raises:
+    the tensor-core kernel takes bf16 at dh 64, 80 and 128 only."""
+    if ok:
+        assert fa.kernel_variant(dtype, dh, force) == force
+    else:
+        with pytest.raises(ValueError, match="flash kernel"):
+            fa.kernel_variant(dtype, dh, force)
+
+
+TC_WINDOWS = (0, 1, 2, 63, 64, 65, 100, 127, 128, 129, 200, 300)
+
+
+@pytest.mark.parametrize("sq,sk", [(64, 64), (128, 128), (192, 192),
+                                   (320, 320), (512, 512), (128, 384)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_tile_rules_keep_every_kept_pair(sq, sk, causal):
+    """The tensor-core kernel's kv-tile skip rule (``tc_kv_tiles``, per
+    128-row query tile) never skips a tile that holds a pair the mask
+    keeps, and its mask rule (``tc_tile_masked``, per 64-row warpgroup)
+    leaves unmasked only tiles whose every pair is kept and real; with
+    Sq == Sk the first and last tiles loaded each hold a kept pair."""
+    bq, bk = fa.TC_BLOCK_Q, fa.TC_BLOCK_KV
+    rel = np.arange(sq)[:, None] - np.arange(sk)[None, :]
+    key_tile = np.arange(sk) // bk
+    for window in TC_WINDOWS:
+        keep = np.ones((sq, sk), bool)
+        if causal:
+            keep &= rel >= 0
+        if window:
+            keep &= rel < window
+        for q0 in range(0, sq, bq):
+            rows = min(bq, sq - q0)
+            tiles = fa.tc_kv_tiles(q0, rows, sk, causal, window)
+            needed = set(key_tile[keep[q0:q0 + rows].any(0)].tolist())
+            assert needed <= set(tiles), (q0, window, needed, tiles)
+            for q_lo in range(q0, q0 + rows, 64):
+                for t in tiles:
+                    k0 = t * bk
+                    if not fa.tc_tile_masked(q_lo, k0, sk, causal, window):
+                        assert k0 + bk <= sk
+                        assert keep[q_lo:q_lo + 64, k0:k0 + bk].all()
+            if sq == sk and len(tiles):
+                for t in (tiles[0], tiles[-1]):
+                    assert keep[q0:q0 + rows, t * bk:(t + 1) * bk].any()
