@@ -9,8 +9,11 @@ port's two paths:
 * the batched wave engine, ``TorchBatchSimulator``, at full width (the
   NPB IS class-C analogue on 64 heterogeneous nodes, 1024 cluster
   bounds, three policies), a padded mixed-shape batch and the ILP
-  policies, checked against the plain version and the event simulator's
-  golden makespans (``power_step`` and ``waterfill``);
+  policies, each run in one launch of the whole-row kernel
+  (``wave_run``), checked against the plain version and the event
+  simulator's golden makespans; then the per-wave "step" path
+  (``power_step`` and ``waterfill`` once a wave) on the same rows as the
+  yardstick;
 * the dense LM serving path at full width, llama3-8b with random bf16
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
@@ -304,10 +307,12 @@ def _summary(r):
 
 def _compare_results(rs_a, rs_b, what):
     """Per-row makespan / energy / peak / over-budget time within TOL and
-    the same completed jobs; takes results or their summaries."""
+    the same completed jobs; takes results or their summaries.  Returns
+    (worst relative error, max abs diff over those four and, where both
+    sides are results, every job's start and end stamps)."""
     import math
 
-    worst = 0.0
+    worst = abs_diff = 0.0
     for ra, rb in zip(rs_a, rs_b):
         sa = ra if isinstance(ra, tuple) else _summary(ra)
         sb = rb if isinstance(rb, tuple) else _summary(rb)
@@ -318,8 +323,16 @@ def _compare_results(rs_a, rs_b, what):
             require(abs(a - b) <= TOL * abs(b) + 1e-9,
                     f"{what}: {f} {a!r} vs {b!r}")
             worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+            abs_diff = max(abs_diff, abs(a - b))
         require(sa[4] == sb[4], f"{what}: completed job sets differ")
-    return worst
+        if not (isinstance(ra, tuple) or isinstance(rb, tuple)):
+            for stamps_a, stamps_b in ((ra.job_starts, rb.job_starts),
+                                       (ra.job_ends, rb.job_ends)):
+                require(stamps_a.keys() == stamps_b.keys(),
+                        f"{what}: started job sets differ")
+                for k, v in stamps_b.items():
+                    abs_diff = max(abs_diff, abs(stamps_a[k] - v))
+    return worst, abs_diff
 
 
 FULL_WIDTH_POLICIES = ("equal-share", "oracle", "heuristic")
@@ -350,8 +363,8 @@ def _full_width_case():
 
 def _plain_full_width(queue) -> None:
     """Worker process: the full-width picks under the plain version.  It
-    runs beside the kernel runs (both are host-bound, the card mostly
-    idle) and sends back summaries, or the traceback of its failure."""
+    runs beside the kernel runs (the card mostly idle) and sends back
+    summaries, or the traceback of its failure."""
     import traceback
 
     try:
@@ -372,9 +385,44 @@ def _plain_full_width(queue) -> None:
         queue.put(("error", traceback.format_exc()))
 
 
+def _delta(launches, before):
+    return {k: launches[k] - before[k] for k in launches}
+
+
+def _wave_run_bound(sim, stats) -> dict:
+    """The least time the card could take for one whole-row run: each
+    input read once and each output written once (geometry and tables
+    once, shared or not; the state and the policy's tensors in and out),
+    and the operations this run's waves need: per lane a wave, a compare
+    and a select per LUT state and ~15 more, plus ~8 per water-fill pass
+    (two passes) where the policy water-fills."""
+    import numpy as np
+
+    from repro_torch.backends.policies import kernel_mode
+
+    a = sim.arrays
+    b, n, j1 = sim.n_rows, a.n_nodes, a.n_jobs + 1
+    s = a.table.state_p.shape[-1]
+    copies = b if sim.stacked else 1          # of work, rho and the tables
+    geometry = 4 * (a.node_seq.size + a.deps_pad.size
+                    + copies * (2 * j1 + (2 * s + 7) * n))
+    t_cols = 1 if sim._sched is None else sim._sched[0].shape[1]
+    inputs = geometry + 4 * b + 8 * b * t_cols  # n_active, schedules
+    state = (b * n * (8 + 1 + 4) + b * j1 * (1 + 4 + 4)
+             + b * (4 * 6 + 8 * 3 + 3)
+             + 4 * sum(np.asarray(v).size
+                       for v in sim.policy.init_state(sim).values()))
+    nbytes = inputs + 2 * state + 8 * b       # + the loop counts out
+    fills = kernel_mode(sim.policy) in ("redistribute", "heuristic")
+    per_lane = 2 * s + 15 + (16 if fills else 0)
+    return bound(nbytes, stats.row_waves * n * per_lane, FP32_OPS_PER_S)
+
+
 def phase_full_width(torch, launches):
-    """The main path at full width: 1024 bounds x IS class C, N=64;
-    returns the launch counts of this phase's kernel runs."""
+    """The main path at full width: 1024 bounds x IS class C, N=64, each
+    policy in one launch of the whole-row kernel; then the plain path on
+    equal-share's 1024 rows as the yardstick.  Returns the main path's
+    launch counts, the kernel's numbers and equal-share's run."""
     import multiprocessing as mp
 
     from repro_torch import TorchBatchSimulator
@@ -399,22 +447,32 @@ def phase_full_width(torch, launches):
             sim = TorchBatchSimulator(graph, specs, bounds, policy,
                                       dt=0.05, latency_s=0.05)
             res = sim.run()
-            runs[policy] = (time.perf_counter() - t0, sim.stats, res)
-            waves = sim.stats.waves
+            runs[policy] = (time.perf_counter() - t0, sim, res)
+            got = _delta(launches, before)
+            require(sim.stats.path == "cuda"
+                    and got == {"power_step": 0, "waterfill": 0,
+                                "wave_run": 1},
+                    f"{policy}: launches {got} on path {sim.stats.path}; "
+                    f"one wave_run launch and no per-wave launch expected")
             require(all(len(r.job_ends) == ga.n_jobs for r in res),
                     f"{policy}: a row did not complete every job")
-            got = launches["power_step"] - before["power_step"]
-            require(got == waves, f"{policy}: power_step launches {got} "
-                                  f"!= waves {waves}")
-            if policy == "heuristic":
-                require(launches["waterfill"] - before["waterfill"]
-                        == waves,
-                        "heuristic: one waterfill launch per wave expected")
             if policy == "equal-share":
                 require(all(r.peak_power_w <= b * (1 + 1e-5)
                             for r, b in zip(res, bounds)),
                         "equal-share peak above its bound")
         main_launches = dict(launches)
+        # the latency of one wave: the heuristic's lowest bound (its
+        # longest row) alone on the card, no other warp beside it
+        one = TorchBatchSimulator(graph, specs, bounds[:1], "heuristic",
+                                  dt=0.05, latency_s=0.05)
+        one.run()
+        # the plain version on the same inputs: all 1024 rows of
+        # equal-share on this card
+        t0 = time.perf_counter()
+        eq_plain = TorchBatchSimulator(graph, specs, bounds, "equal-share",
+                                       dt=0.05, latency_s=0.05,
+                                       impl="plain").run()
+        eq_plain_wall = time.perf_counter() - t0
         status, plain = queue.get(timeout=1800)
         worker.join(timeout=60)
     finally:
@@ -422,60 +480,103 @@ def phase_full_width(torch, launches):
             worker.terminate()
             worker.join()
     require(status == "ok", f"plain full-width worker failed:\n{plain}")
+    out = {"abs_diff": 0.0}
     for policy in FULL_WIDTH_POLICIES:
-        wall, (waves, syncs), res = runs[policy]
+        wall, sim, res = runs[policy]
+        st = sim.stats
         plain_wall, plain_rows = plain[policy]
-        rel = _compare_results([res[i] for i in picks[policy]], plain_rows,
-                               f"full-width {policy} kernel vs plain")
+        rel, abs_diff = _compare_results(
+            [res[i] for i in picks[policy]], plain_rows,
+            f"full-width {policy} kernel vs plain")
+        out["abs_diff"] = max(out["abs_diff"], abs_diff)
         mk = [r.makespan for r in res]
-        emit("full_width", policy=policy, rows=len(res), dims=dims,
-             bound_w=[float(bounds[0]), float(bounds[-1])],
-             wall_s=wall, waves=waves, host_syncs=syncs,
-             rows_per_s=len(res) / wall, makespan_s=[min(mk), max(mk)],
-             max_rel_vs_plain=rel, plain_rows=len(plain_rows),
-             plain_wall_s=plain_wall)
-    return main_launches
+        fields = {}
+        if policy == "equal-share":
+            rel_p, abs_p = _compare_results(res, eq_plain,
+                                            "full-width equal-share "
+                                            "kernel vs plain (all rows)")
+            out["abs_diff"] = max(out["abs_diff"], abs_p)
+            out.update(bound=_wave_run_bound(sim, st), ms=st.kernel_ms,
+                       plain_ms=1e3 * eq_plain_wall, equal_share=(wall, res,
+                                                                 st))
+            fields = dict(plain_all_rows_wall_s=eq_plain_wall,
+                          max_rel_vs_plain_all_rows=rel_p,
+                          max_abs_diff_vs_plain_all_rows=abs_p)
+        if policy == "heuristic":
+            one_us = 1e3 * one.stats.kernel_ms / one.stats.waves
+            fields = dict(one_row_kernel_ms=one.stats.kernel_ms,
+                          one_row_waves=one.stats.waves,
+                          one_row_us_per_wave=one_us,
+                          latency_floor_ms=st.waves * one_us / 1e3)
+            out["latency_floor_ms_heuristic"] = fields["latency_floor_ms"]
+        out[f"ms_{policy}"] = st.kernel_ms
+        emit("full_width", policy=policy, path=st.path, rows=len(res),
+             dims=dims, bound_w=[float(bounds[0]), float(bounds[-1])],
+             wall_s=wall, kernel_ms=st.kernel_ms, waves=st.waves,
+             row_waves=st.row_waves,
+             us_per_wave=1e3 * st.kernel_ms / st.waves,
+             host_share_of_wall=1 - st.kernel_ms / (1e3 * wall),
+             host_syncs=st.host_syncs, rows_per_s=len(res) / wall,
+             makespan_s=[min(mk), max(mk)], max_rel_vs_plain=rel,
+             max_abs_diff_vs_plain=abs_diff, plain_rows=len(plain_rows),
+             plain_wall_s=plain_wall, **fields)
+    return main_launches, out
 
 
 def phase_profile(torch):
-    """Where a full-width wave's time goes: the equal-share run again
-    under ``torch.profiler``; device time over wall time is the share of
-    the run the card was busy (the profiler's own cost is in the wall)."""
-    import numpy as np
+    """Where a full-width run's time goes on the default path: each
+    policy's run under ``torch.profiler`` (device time of the wave_run
+    kernel and of everything else) and the host's parts of the wall:
+    building the simulator, the run, and turning the fetched arrays into
+    results."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import TorchBatchSimulator
-    from repro_torch.core.power import (heterogeneous_cluster,
-                                        max_useful_cluster_bound,
-                                        min_feasible_cluster_bound)
-    from repro_torch.core.workloads import is_like
 
-    graph = is_like(64, "C")
-    specs = heterogeneous_cluster(64, seed=0)
-    bounds = np.linspace(1.05 * min_feasible_cluster_bound(specs),
-                         max_useful_cluster_bound(specs), 1024)
-    sim = TorchBatchSimulator(graph, specs, bounds, "equal-share")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph, specs, bounds, _ = _full_width_case()
+    results_s = []
+    make_results = TorchBatchSimulator._results
+
+    def timed_results(self, out):
         t0 = time.perf_counter()
-        sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_s = sum(_self_device_us(e) for e in rows) / 1e6
-    top = sorted(rows, key=_self_device_us, reverse=True)[:5]
-    emit("profile", policy="equal-share", rows=1024, waves=sim.stats.waves,
-         wall_s=wall, device_s=device_s, device_busy_share=device_s / wall,
-         device_ms_per_wave=1e3 * device_s / sim.stats.waves,
-         wall_ms_per_wave=1e3 * wall / sim.stats.waves,
-         device_launches=sum(e.count for e in rows),
-         top_device_ms={e.key[:60]: _self_device_us(e) / 1e3 for e in top})
+        res = make_results(self, out)
+        results_s.append(time.perf_counter() - t0)
+        return res
+
+    TorchBatchSimulator._results = timed_results
+    try:
+        for policy in ("equal-share", "heuristic"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sim = TorchBatchSimulator(graph, specs, bounds, policy)
+                t1 = time.perf_counter()
+                sim.run()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            device_s = sum(_self_device_us(e) for e in rows) / 1e6
+            kernel_s = sum(_self_device_us(e) for e in rows
+                           if "wave_run" in e.key) / 1e6
+            require(kernel_s > 0, f"profile {policy}: no wave_run kernel")
+            wall = t2 - t0
+            top = sorted(rows, key=_self_device_us, reverse=True)[:5]
+            emit("profile", policy=policy, rows=len(bounds),
+                 waves=sim.stats.waves, wall_s=wall, build_s=t1 - t0,
+                 run_s=t2 - t1, results_s=results_s[-1],
+                 device_s=device_s, wave_run_device_s=kernel_s,
+                 device_busy_share=device_s / wall,
+                 host_share=1 - device_s / wall,
+                 device_launches=sum(e.count for e in rows),
+                 top_device_ms={e.key[:60]: _self_device_us(e) / 1e3
+                                for e in top})
+    finally:
+        TorchBatchSimulator._results = make_results
 
 
-def phase_padded(torch, launches):
-    """The six mixed-family members x 3 bound fractions, one stacked
-    batch per policy, with their relative bound steps."""
-    from repro_torch import TorchBatchSimulator
+def _padded_case():
+    """The six mixed-family members x bound fractions (0.15, 0.4, 0.8),
+    their relative bound steps, and paper-ILP assignments."""
     from repro_torch.core.ilp import solve_paper_ilp
     from repro_torch.core.power import (max_useful_cluster_bound,
                                         min_feasible_cluster_bound)
@@ -486,40 +587,115 @@ def phase_padded(torch, launches):
         lo = min_feasible_cluster_bound(specs)
         hi = max_useful_cluster_bound(specs)
         for frac in (0.15, 0.4, 0.8):
-            bound = lo + frac * (hi - lo)
+            bound_w = lo + frac * (hi - lo)
             items.append((graph, specs))
-            bounds.append(bound)
-            scheds.append(tuple((t, f * bound) for t, f in steps))
+            bounds.append(bound_w)
+            scheds.append(tuple((t, f * bound_w) for t, f in steps))
     # a 5 s cap per solve keeps the slowest members' MILPs short: the
     # kernel and plain runs then share whatever assignment it returns
     assignments = [solve_paper_ilp(g, sp, b, time_limit=5.0)
                    for (g, sp), b in zip(items, bounds)]
+    return items, bounds, scheds, assignments
+
+
+def phase_padded(torch, launches):
+    """One stacked batch per policy with bound steps, on the default path
+    (one wave_run launch) against the plain path; returns the max abs
+    diff."""
+    from repro_torch import TorchBatchSimulator
+
+    items, bounds, scheds, assignments = _padded_case()
+    worst = 0.0
     for policy in ("equal-share", "oracle", "heuristic", "ilp"):
         kw = {"assignments": assignments} if policy == "ilp" else {}
-        before = launches["power_step"]
+        before = dict(launches)
         t0 = time.perf_counter()
         sim = TorchBatchSimulator.padded(items, bounds, policy,
                                          bound_schedules=scheds, **kw)
         res = sim.run()
         wall = time.perf_counter() - t0
-        require(launches["power_step"] - before == sim.stats.waves,
-                f"padded {policy}: one power_step launch per wave expected")
+        got = _delta(launches, before)
+        require(got == {"power_step": 0, "waterfill": 0, "wave_run": 1},
+                f"padded {policy}: launches {got}; one wave_run expected")
         plain = TorchBatchSimulator.padded(items, bounds, policy,
                                            bound_schedules=scheds,
                                            impl="plain", **kw).run()
-        rel = _compare_results(res, plain,
-                               f"padded {policy} kernel vs plain")
+        rel, abs_diff = _compare_results(res, plain,
+                                         f"padded {policy} kernel vs plain")
+        worst = max(worst, abs_diff)
         require(all(len(r.job_ends) == len(g.jobs)
                     for r, (g, _) in zip(res, items)),
                 f"padded {policy}: a row did not complete")
-        emit("padded", policy=policy, rows=len(res), wall_s=wall,
-             waves=sim.stats.waves, host_syncs=sim.stats.host_syncs,
-             max_rel_vs_plain=rel)
+        emit("padded", policy=policy, path=sim.stats.path, rows=len(res),
+             wall_s=wall, kernel_ms=sim.stats.kernel_ms,
+             waves=sim.stats.waves, row_waves=sim.stats.row_waves,
+             host_syncs=sim.stats.host_syncs, max_rel_vs_plain=rel,
+             max_abs_diff_vs_plain=abs_diff)
+    return worst
 
 
-def phase_ilp(torch):
-    """Listing 2 on three nodes: ILP policies over 16 bounds vs plain,
-    and equal-share / oracle vs the event simulator's golden makespans."""
+def phase_step_path(torch, launches, equal_share):
+    """The per-wave "step" path (one power_step launch a wave, and one
+    waterfill launch a heuristic wave), the yardstick on the same card:
+    equal-share at full width, all 1024 rows, against the whole-row
+    kernel's run of ``phase_full_width``; and the padded heuristic
+    against the default path.  Both run with the counts set to 0 before
+    and read after (the default-path comparison run is not counted).
+    Returns those counts and the full-width step wall in ms."""
+    from repro_torch import TorchBatchSimulator
+
+    graph, specs, bounds, _ = _full_width_case()
+    kernel_wall, kernel_res, kernel_stats = equal_share
+    items, p_bounds, scheds, _ = _padded_case()
+    for key in launches:
+        launches[key] = 0
+    t0 = time.perf_counter()
+    sim = TorchBatchSimulator(graph, specs, bounds, "equal-share",
+                              dt=0.05, latency_s=0.05, impl="step")
+    res = sim.run()
+    wall = time.perf_counter() - t0
+    got = dict(launches)
+    require(sim.stats.path == "step" and got["wave_run"] == 0
+            and got["power_step"] == sim.stats.waves,
+            f"step path: launches {got}, {sim.stats.waves} waves")
+    # the lockstep loop tests liveness every 64 iterations
+    require(sim.stats.waves == -(-kernel_stats.waves // 64) * 64,
+            f"step path ran {sim.stats.waves} iterations, the kernel's "
+            f"longest row {kernel_stats.waves}")
+    rel, abs_diff = _compare_results(res, kernel_res, "full-width "
+                                     "equal-share step vs wave_run")
+    emit("step_path", run="full_width equal-share", rows=len(res),
+         wall_s=wall, rows_per_s=len(res) / wall, waves=sim.stats.waves,
+         launches=got, max_rel_vs_wave_run=rel,
+         max_abs_diff_vs_wave_run=abs_diff, wave_run_wall_s=kernel_wall,
+         wave_run_waves=kernel_stats.waves,
+         wall_ratio_step_over_wave_run=wall / kernel_wall)
+
+    before = dict(launches)
+    sim = TorchBatchSimulator.padded(items, p_bounds, "heuristic",
+                                     bound_schedules=scheds, impl="step")
+    res = sim.run()
+    got = _delta(launches, before)
+    require(got["power_step"] == sim.stats.waves == got["waterfill"]
+            and got["wave_run"] == 0,
+            f"step path padded heuristic: launches {got}, "
+            f"{sim.stats.waves} waves")
+    step_launches = dict(launches)
+    kernel_res = TorchBatchSimulator.padded(
+        items, p_bounds, "heuristic", bound_schedules=scheds).run()
+    rel_h, abs_h = _compare_results(res, kernel_res, "padded heuristic "
+                                    "step vs wave_run")
+    emit("step_path", run="padded heuristic", rows=len(res),
+         waves=sim.stats.waves, launches=got, max_rel_vs_wave_run=rel_h,
+         max_abs_diff_vs_wave_run=abs_h)
+    return step_launches, 1e3 * wall
+
+
+def phase_ilp(torch, launches):
+    """Listing 2 on three nodes: ILP policies over 16 bounds on the
+    default path (one wave_run launch) vs plain, and equal-share / oracle
+    vs the event simulator's golden makespans.  Returns the max abs diff
+    vs plain."""
     import numpy as np
 
     from repro_torch import TorchBatchSimulator
@@ -533,23 +709,30 @@ def phase_ilp(torch):
     lo = min_feasible_cluster_bound(specs)
     hi = max_useful_cluster_bound(specs)
     bounds = np.linspace(1.05 * lo, hi, 16)
+    worst = 0.0
     for policy, solver in (("ilp", solve_paper_ilp),
                            ("ilp-makespan", build_makespan_milp)):
         assignments = [solver(graph, specs, b) for b in bounds]
+        before = dict(launches)
         res = TorchBatchSimulator(graph, specs, bounds, policy,
                                   assignments=assignments).run()
+        got = _delta(launches, before)
+        require(got == {"power_step": 0, "waterfill": 0, "wave_run": 1},
+                f"listing2 {policy}: launches {got}; one wave_run expected")
         plain = TorchBatchSimulator(graph, specs, bounds, policy,
                                     assignments=assignments,
                                     impl="plain").run()
-        rel = _compare_results(res, plain, f"listing2 {policy}")
+        rel, abs_diff = _compare_results(res, plain, f"listing2 {policy}")
+        worst = max(worst, abs_diff)
         emit("ilp", policy=policy, rows=len(res), max_rel_vs_plain=rel,
+             max_abs_diff_vs_plain=abs_diff,
              makespan_s=[r.makespan for r in res])
     # The solver-free exact policies against the event simulator's
     # golden makespans; the ILP's golden depends on the HiGHS build that
     # solved it (another scipy picks another optimal assignment).
     golden = json.loads((ROOT / "tests" / "golden" / "listing2.json")
                         .read_text())["makespans"]
-    worst = 0.0
+    golden_worst = 0.0
     for policy in ("equal-share", "oracle"):
         gb = sorted(golden, key=float)
         res = TorchBatchSimulator(graph, specs, [float(b) for b in gb],
@@ -559,10 +742,11 @@ def phase_ilp(torch):
             err = abs(r.makespan - want) / want
             require(err <= TOL, f"listing2 {policy} at {b} W: makespan "
                                 f"{r.makespan} vs golden {want}")
-            worst = max(worst, err)
+            golden_worst = max(golden_worst, err)
     emit("golden", workload="listing2 on homogeneous_cluster(3)",
          policies=["equal-share", "oracle"],
-         max_rel_vs_event_simulator=worst)
+         max_rel_vs_event_simulator=golden_worst)
+    return worst
 
 
 # ------------------------------------------------------------ LM phases
@@ -1162,16 +1346,38 @@ def sim_phases(torch, device, counters):
 
     worst, times, bounds = phase_kernel(torch, device)
     _zero(counters)
-    main_launches = phase_full_width(torch, ps.LAUNCHES)
+    main_launches, fw = phase_full_width(torch, ps.LAUNCHES)
+    step_launches, step_ms = phase_step_path(torch, ps.LAUNCHES,
+                                             fw["equal_share"])
     phase_profile(torch)
-    phase_padded(torch, ps.LAUNCHES)
-    phase_ilp(torch)
+    padded_diff = phase_padded(torch, ps.LAUNCHES)
+    ilp_diff = phase_ilp(torch, ps.LAUNCHES)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
+    per_wave = ("the per-wave entry points run on the engine's \"step\" "
+                "path; launches are its counts (phase step_path), "
+                "launches_main the default path's")
     return [
+        {"name": "wave_run", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/power_step.py:195",
+         "replaces_loop": "src/repro/backends/jax/engine.py:211",
+         "launches": main_launches["wave_run"],
+         "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
+         "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
+         "ms_heuristic": fw["ms_heuristic"],
+         "latency_floor_ms_heuristic": fw["latency_floor_ms_heuristic"],
+         "plain_ms": fw["plain_ms"], "step_ms": step_ms,
+         "timing": "equal-share at full width: ms is the kernel (CUDA "
+                   "events), plain_ms and step_ms the wall of the plain "
+                   "and per-wave paths on the same rows; the latency "
+                   "floor is the longest row's waves x one wave's time "
+                   "with that row alone on the card",
+         **{k: fw["bound"][k] for k in ("bound_ms", "bound_by")},
+         "library_ms": None},
         {"name": "power_step", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/power_step.py:195",
-         "launches": main_launches["power_step"],
+         "launches": step_launches["power_step"],
+         "launches_main": main_launches["power_step"], "note": per_wave,
          "max_abs_err": worst["power_step"][0],
          "ms": times["power_step_ms"],
          "plain_ms": times["power_step_plain_ms"],
@@ -1182,7 +1388,8 @@ def sim_phases(torch, device, counters):
          "library_ms": None},
         {"name": "waterfill", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/power_step.py:134",
-         "launches": main_launches["waterfill"],
+         "launches": step_launches["waterfill"],
+         "launches_main": main_launches["waterfill"], "note": per_wave,
          "max_abs_err": worst["waterfill"][0],
          "ms": times["waterfill_ms"], "plain_ms": times["waterfill_plain_ms"],
          "call_ms": times["waterfill_call_ms"],

@@ -16,6 +16,17 @@ Two batch layouts share the loop:
   cluster) rows padded to one envelope (phantom job slots born complete,
   phantom lanes with zero idle draw; see :mod:`repro_torch.core.arrays`).
 
+Three paths run the same loop (``impl``):
+
+* ``"cuda"`` — one launch of the hand-written ``wave_run`` kernel runs
+  every row through the whole loop below on the device, one warp a row,
+  with the policy's cap rule inside (its ``kernel_mode``); no host in
+  the loop;
+* ``"step"`` — the lockstep loop below on the host, one launch of the
+  ``power_step`` kernel (and of ``waterfill`` for the heuristic) a wave;
+* ``"plain"`` — the same lockstep loop with the plain PyTorch versions:
+  the plain version beside the kernels, and the CPU path.
+
 One loop iteration does, for every row, one step of the settle fixed
 point (start ready jobs, then complete zero-work ones) and then, on the
 rows that are settled, one wave: policy caps, the fused
@@ -54,15 +65,19 @@ from repro_torch.core.graph import JobDependencyGraph
 from repro_torch.core.power import NodeSpec
 from repro_torch.core.results import OVER_BUDGET_RTOL, SimResult
 from repro_torch.kernels.power_step import (BIG_TIME, StepTables,
-                                            power_step, resolve_impl,
-                                            step_tables)
+                                            power_step, step_tables,
+                                            wave_run_cuda)
 
-from .policies import TorchPolicy, current_jobs, get_torch_policy
+from .policies import (TorchPolicy, current_jobs, get_torch_policy,
+                       kernel_mode)
 
 #: Anything above this is "no event" (see power_step's BIG_TIME).
 _BIG_CUT = BIG_TIME * 0.5
 
 FLOAT = torch.float32
+
+#: The engine's paths (see the module docstring).
+ENGINE_IMPLS = ("plain", "step", "cuda")
 
 
 class Ctx(NamedTuple):
@@ -70,13 +85,13 @@ class Ctx(NamedTuple):
     axis B (expanded without copying in the shared layout)."""
 
     tab: StepTables
-    node_seq: torch.Tensor    # (B, N, K) int64
-    deps_pad: torch.Tensor    # (B, J+1, D) int64
+    node_seq: torch.Tensor    # (B, N, K) int64 (int32 for "cuda")
+    deps_pad: torch.Tensor    # (B, J+1, D) int64 (int32 for "cuda")
     work_pad: torch.Tensor    # (B, J+1)
     rho_pad: torch.Tensor     # (B, J+1)
-    n_active: torch.Tensor    # (B,) int64 real node count
+    n_active: torch.Tensor    # (B,) int64 (int32 for "cuda") real nodes
     dt: torch.Tensor          # () policy tick
-    impl: str                 # power_step implementation ("plain"/"cuda")
+    impl: str                 # per-wave kernels' impl ("plain"/"cuda")
 
 
 @dataclass
@@ -104,10 +119,45 @@ class State:
 
 
 class RunStats(NamedTuple):
-    """What the last :meth:`TorchBatchSimulator.run` cost the host."""
+    """What the last :meth:`TorchBatchSimulator.run` cost."""
 
-    waves: int          # loop iterations = power_step calls
+    path: str           # the engine path that ran (ENGINE_IMPLS)
+    waves: int          # loop iterations: of the lockstep loop (a
+    #                     multiple of check_every), or the most any row
+    #                     ran in the kernel ("cuda")
+    row_waves: int      # waves summed over the rows
     host_syncs: int     # liveness checks + the final fetch
+    kernel_ms: Optional[float]  # device time of the wave_run launch
+    #                             (CUDA events; "cuda" only)
+
+
+def resolve_impl(impl: Optional[str], device: torch.device,
+                 policy: TorchPolicy) -> str:
+    """The engine path for ``impl`` (see the module docstring).
+
+    ``None`` chooses by capability: on the CPU the plain path; on the
+    card ``"cuda"`` when the policy declares a ``kernel_mode`` (every
+    registry policy does) and ``"step"`` when it does not (a custom
+    :class:`TorchPolicy`).  Nothing falls back: ``"step"``/``"cuda"``
+    without a CUDA device, and ``"cuda"`` for a policy without a mode,
+    raise.
+    """
+    mode = kernel_mode(policy)
+    if impl is None:
+        if device.type != "cuda":
+            return "plain"
+        return "cuda" if mode is not None else "step"
+    if impl not in ENGINE_IMPLS:
+        raise ValueError(f"unknown engine impl {impl!r}; expected None or "
+                         f"one of {ENGINE_IMPLS}")
+    if impl != "plain" and device.type != "cuda":
+        raise ValueError(f"impl={impl!r} launches the CUDA kernels: it "
+                         f"needs a CUDA device, got {device}")
+    if impl == "cuda" and mode is None:
+        raise ValueError(f"impl='cuda' runs the policy's cap rule in the "
+                         f"kernel, and policy {policy.name!r} declares no "
+                         f"kernel_mode; use impl='step'")
+    return impl
 
 
 def resolve_device(device) -> torch.device:
@@ -178,10 +228,10 @@ class TorchBatchSimulator:
     ``bound_schedules`` (one ``(time_s, bound_w)`` iterable per row)
     makes the rows' bounds time-varying, resolved at exact arrival
     times.  ``device=None`` runs on the card and raises without one;
-    ``impl`` picks the power-step implementation (``None``: the CUDA
-    kernel on the card, the plain version on the CPU; ``"plain"`` forces
-    the plain version).  ``check_every`` is the number of loop
-    iterations between the host's checks for live rows.
+    ``impl`` picks the engine path, ``None``/``"plain"``/``"step"``/
+    ``"cuda"`` (:func:`resolve_impl`; :attr:`stats` names the one that
+    ran).  ``check_every`` is the number of lockstep iterations between
+    the host's checks for live rows.
     """
 
     def __init__(self, graph: JobDependencyGraph, specs: Sequence[NodeSpec],
@@ -266,7 +316,6 @@ class TorchBatchSimulator:
         self.latency_s = float(latency_s)
         self.max_steps = int(max_steps)
         self.device = resolve_device(device)
-        self.impl = resolve_impl(impl, torch.empty(0, device=self.device))
         self.check_every = int(check_every)
         self._sched = pad_bound_schedules(bound_schedules, len(self.bounds))
         if isinstance(policy, TorchPolicy):
@@ -276,6 +325,7 @@ class TorchBatchSimulator:
             self.policy = policy
         else:
             self.policy = get_torch_policy(policy, **policy_kwargs)
+        self.impl = resolve_impl(impl, self.device, self.policy)
         self.stats: Optional[RunStats] = None
 
     @property
@@ -293,6 +343,8 @@ class TorchBatchSimulator:
     def _ctx(self) -> Ctx:
         a = self.arrays
         b = self.n_rows
+        # the kernel loop indexes with int32; torch's gathers take int64
+        index = torch.int32 if self.impl == "cuda" else torch.int64
 
         def rows(x, dtype):
             t = self._tensor(x, dtype)
@@ -300,14 +352,14 @@ class TorchBatchSimulator:
                 b, *t.shape)
 
         return Ctx(tab=step_tables(a.table, self.device, FLOAT),
-                   node_seq=rows(a.node_seq, torch.int64),
-                   deps_pad=rows(a.deps_pad, torch.int64),
+                   node_seq=rows(a.node_seq, index),
+                   deps_pad=rows(a.deps_pad, index),
                    work_pad=rows(a.work_pad, FLOAT),
                    rho_pad=rows(a.rho_pad, FLOAT),
-                   n_active=self._tensor(self.n_active, torch.int64),
+                   n_active=self._tensor(self.n_active, index),
                    dt=torch.tensor(self.dt, dtype=FLOAT,
                                    device=self.device),
-                   impl=self.impl)
+                   impl="plain" if self.impl == "plain" else "cuda")
 
     def _state0(self) -> State:
         b, n, j = self.n_rows, self.n_nodes, self.n_jobs_total
@@ -412,6 +464,20 @@ class TorchBatchSimulator:
         return ((~st.done & ~st.stalled & (st.steps < self.max_steps))
                 | ~st.settled).any()
 
+    def _lockstep(self, ctx: Ctx, st: State, pol, sched_t, sched_w
+                  ) -> Tuple[int, int]:
+        """Every row in lockstep until none is live: (iterations, host
+        syncs)."""
+        waves = syncs = 0
+        while True:
+            _settle_step(ctx, st)
+            pol = self._wave(ctx, st, pol, sched_t, sched_w)
+            waves += 1
+            if waves % self.check_every == 0:
+                syncs += 1
+                if not bool(self._live(st)):
+                    return waves, syncs
+
     def run(self) -> List[SimResult]:
         """Run the batch to the end of every row; one result per row."""
         pol = {k: self._tensor(v, torch.bool if np.asarray(v).dtype == bool
@@ -425,19 +491,27 @@ class TorchBatchSimulator:
             sched_t = torch.full((self.n_rows, 1), BIG_TIME, dtype=FLOAT,
                                  device=self.device)
             sched_w = torch.zeros_like(sched_t)
-        waves = syncs = 0
-        while True:
-            _settle_step(ctx, st)
-            pol = self._wave(ctx, st, pol, sched_t, sched_w)
-            waves += 1
-            if waves % self.check_every == 0:
-                syncs += 1
-                if not bool(self._live(st)):
-                    break
+        if self.impl == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            iters = wave_run_cuda(ctx, st, pol, sched_t, sched_w,
+                                  mode=kernel_mode(self.policy), dt=self.dt,
+                                  max_steps=self.max_steps)
+            end.record()
+            syncs = 0
+        else:
+            waves, syncs = self._lockstep(ctx, st, pol, sched_t, sched_w)
         out = {k: getattr(st, k).cpu().numpy()
                for k in ("makespan", "energy", "peak", "over_t", "start_t",
                          "end_t", "completed", "done", "stalled", "steps")}
-        self.stats = RunStats(waves=waves, host_syncs=syncs + 1)
+        kernel_ms = None
+        if self.impl == "cuda":
+            waves = int(iters.max())
+            kernel_ms = start.elapsed_time(end)
+        self.stats = RunStats(path=self.impl, waves=waves,
+                              row_waves=int(out["steps"].sum()),
+                              host_syncs=syncs + 1, kernel_ms=kernel_ms)
         self._check_failures(out)
         return self._results(out)
 

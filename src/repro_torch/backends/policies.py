@@ -15,6 +15,14 @@ Host-side work (ILP solves) happens once in ``init_state``, which returns
 the per-row policy state (numpy, leading row axis B); the engine moves it
 to the device.  ``redistribute=True`` hands cap setting to the fused
 power step's reclamation / water-fill stage (the oracle rule).
+
+``kernel_mode`` names the cap rule the whole-row CUDA loop
+(``wave_run`` in :mod:`repro_torch.kernels.power_step`) runs in place of
+``caps_fn``/``tick_fn``: a key of ``WAVE_MODES``.  It is read from the
+policy's own class only (:func:`kernel_mode`), so a subclass that
+changes the two functions does not inherit a rule that no longer
+describes it; a policy without a mode runs on the engine's per-wave
+paths.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.power_step import waterfill
+from repro_torch.kernels.power_step import row_sum, waterfill
 from repro_torch.policies.assign import resolve_assignments
 from repro_torch.policies.registry import PolicyRegistry
 
@@ -51,6 +59,7 @@ class TorchPolicy:
     exact: bool = True
     wants_ticks: bool = False
     redistribute: bool = False
+    kernel_mode: Optional[str] = None
 
     def init_state(self, sim) -> Dict[str, np.ndarray]:
         """Per-row policy state, every leaf with the row axis first."""
@@ -63,6 +72,12 @@ class TorchPolicy:
     @staticmethod
     def tick_fn(ctx, st, pol, due):
         return pol
+
+
+def kernel_mode(policy: TorchPolicy) -> Optional[str]:
+    """The cap rule ``policy``'s own class declares for the whole-row
+    kernel, or ``None`` (inherited declarations do not count)."""
+    return vars(type(policy)).get("kernel_mode")
 
 
 _TORCH_REGISTRY = PolicyRegistry(TorchPolicy, "torch")
@@ -86,6 +101,7 @@ class TorchEqualShare(TorchPolicy):
     """Static P/n caps — the base class is the whole policy."""
 
     name = "equal-share"
+    kernel_mode = "nominal"
 
 
 @register_torch_policy("ilp")
@@ -101,6 +117,7 @@ class TorchIlpStatic(TorchPolicy):
     """
 
     name = "ilp"
+    kernel_mode = "job_caps"
     use_makespan_milp = False
 
     def __init__(self, assignments: Optional[Sequence] = None,
@@ -138,6 +155,7 @@ class TorchIlpStatic(TorchPolicy):
 @register_torch_policy("ilp-makespan")
 class TorchIlpMakespan(TorchIlpStatic):
     name = "ilp-makespan"
+    kernel_mode = "job_caps"
     use_makespan_milp = True
 
     def __init__(self, assignments: Optional[Sequence] = None,
@@ -153,6 +171,7 @@ class TorchOracle(TorchPolicy):
 
     name = "oracle"
     redistribute = True
+    kernel_mode = "redistribute"
 
 
 @register_torch_policy("heuristic")
@@ -170,6 +189,7 @@ class TorchOnlineHeuristic(TorchPolicy):
     name = "heuristic"
     exact = False
     wants_ticks = True
+    kernel_mode = "heuristic"
 
     def init_state(self, sim) -> Dict[str, np.ndarray]:
         delay = max(1, int(round(2.0 * sim.latency_s / sim.dt)))
@@ -193,8 +213,8 @@ class TorchOnlineHeuristic(TorchPolicy):
         buf = pol["buf"]
         b, depth, n = buf.shape
         delay = depth - 1
-        idle_draw = torch.where(st.running, 0.0, ctx.tab.idle_w).sum(
-            dim=-1, keepdim=True)
+        # summed in the kernel's warp order, so every engine path agrees
+        idle_draw = row_sum(torch.where(st.running, 0.0, ctx.tab.idle_w))
         budget = st.bound.unsqueeze(-1) - idle_draw
         target = waterfill(ctx.tab, st.running.to(budget.dtype), budget,
                            impl=ctx.impl)

@@ -14,6 +14,12 @@ One wave of the batched simulator's hot path, per scenario row:
    ``remaining / rate`` and their row minimum, plus the row's cluster
    power.
 
+The same source holds the whole wave loop: :func:`wave_run_cuda` runs
+every row of a batch through its settle steps and waves to its end in
+one launch, on the engine's state in place (see
+:mod:`repro_torch.backends.engine`, whose lockstep loop is its plain
+version).
+
 Lanes are ``(B, N)`` float32 and row scalars ``(B, 1)``: the engine steps
 all rows of a batch together, so the reference's per-row ``(1, N)`` /
 ``(1, 1)`` is the B=1 case.  :class:`StepTables` holds one cluster shared
@@ -21,7 +27,7 @@ by every row (state tables ``(S, N)``, lane tables ``(1, N)``) or one per
 row (``(B, S, N)`` / ``(B, N)``).
 
 :func:`power_step_plain` transcribes the reference's ``_step_math`` op
-for op; its row sums (:func:`_row_sum`) take the fixed order of the CUDA
+for op; its row sums (:func:`row_sum`) take the fixed order of the CUDA
 kernel's warp reduction, so the kernel and its plain version agree bit
 for bit on the card.  :func:`power_step` dispatches on the tensors'
 device: the plain version for CPU tensors, the hand-written kernel
@@ -34,6 +40,7 @@ Rate-less lanes get the finite sentinel :data:`BIG_TIME` instead of
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from typing import NamedTuple, Optional, Tuple
 
@@ -55,7 +62,12 @@ FIT_ATOL = 1e-6
 MAX_LANES = 256
 
 #: Kernel launches per entry point, counted where each launch happens.
-LAUNCHES: Counter = Counter(power_step=0, waterfill=0)
+LAUNCHES: Counter = Counter(power_step=0, waterfill=0, wave_run=0)
+
+#: Cap rules of the whole-row loop: a policy's ``kernel_mode`` -> the
+#: kernel's code (``Mode`` in ``csrc/power_step.cu``).
+WAVE_MODES = {"nominal": 0, "job_caps": 1, "redistribute": 2,
+              "heuristic": 3}
 
 
 class StepTables(NamedTuple):
@@ -102,7 +114,7 @@ def step_tables(table, device="cpu", dtype=torch.float32) -> StepTables:
 
 
 # ------------------------------------------------------------ plain version
-def _row_sum(x: torch.Tensor) -> torch.Tensor:
+def row_sum(x: torch.Tensor) -> torch.Tensor:
     """``(B, N) -> (B, 1)`` sum in the kernel's order: lane ``i`` is slot
     ``i // 32`` of thread ``i % 32``; each thread sums its slots in
     order, then a butterfly adds thread ``t + off`` into ``t`` for
@@ -162,7 +174,7 @@ def waterfill_plain(tab: StepTables, running: torch.Tensor,
                                 tab.p_max)
         caps = torch.where(open_ & finished, clipped, caps)
         caps = torch.where(sat, tab.p_max, caps)
-        rem = rem - _row_sum(torch.where(sat, tab.p_max, 0.0))
+        rem = rem - row_sum(torch.where(sat, tab.p_max, 0.0))
         open_ = open_ & ~sat & ~finished
     return caps
 
@@ -175,7 +187,7 @@ def power_step_plain(tab: StepTables, caps, running, remaining, rho, bound,
     is a float mask (1.0 running / 0.0 not), as the kernel takes it."""
     running = running > 0.5
     if redistribute:
-        idle_draw = _row_sum(torch.where(running, 0.0, tab.idle_w))
+        idle_draw = row_sum(torch.where(running, 0.0, tab.idle_w))
         eff_caps = waterfill_plain(tab, running, bound - idle_draw)
     else:
         eff_caps = caps
@@ -187,7 +199,7 @@ def power_step_plain(tab: StepTables, caps, running, remaining, rho, bound,
     t_fin = torch.where(has_rate,
                         remaining / torch.where(has_rate, rate, 1.0),
                         BIG_TIME)
-    p_cluster = _row_sum(p_node)
+    p_cluster = row_sum(p_node)
     t_comp = t_fin.amin(dim=-1, keepdim=True)
     return rate, p_node, t_fin, eff_caps, p_cluster, t_comp
 
@@ -272,6 +284,165 @@ def waterfill_cuda(tab: StepTables, running: torch.Tensor,
     check(code, "waterfill")
     LAUNCHES["waterfill"] += 1
     return caps
+
+
+# ------------------------------------------------------- whole-row loop
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+
+#: The policy tensors each wave mode reads.
+_MODE_TENSORS = {"nominal": (), "job_caps": ("caps_job",),
+                 "redistribute": (), "heuristic": ("cap", "buf")}
+
+#: The engine's state tensors the loop updates in place, in the order of
+#: ``ReproWaveArgs``: name -> (dtype, shape kind).
+_WAVE_STATE = {
+    "ptr": (torch.int64, "lane"), "running": (torch.bool, "lane"),
+    "remaining": (torch.float32, "lane"),
+    "completed": (torch.bool, "job"), "start_t": (torch.float32, "job"),
+    "end_t": (torch.float32, "job"),
+    "row_t": (torch.float32, "row"), "bound": (torch.float32, "row"),
+    "sched_idx": (torch.int64, "row"), "done": (torch.bool, "row"),
+    "stalled": (torch.bool, "row"), "settled": (torch.bool, "row"),
+    "energy": (torch.float32, "row"), "peak": (torch.float32, "row"),
+    "over_t": (torch.float32, "row"), "makespan": (torch.float32, "row"),
+    "tick_count": (torch.int64, "row"), "steps": (torch.int64, "row"),
+}
+
+
+class _WaveArgs(ctypes.Structure):
+    """``ReproWaveArgs`` of ``csrc/power_step.cu``, field for field."""
+
+    _fields_ = (
+        [(name, _P) for name in StepTables._fields]
+        + [("stride_s", _LL), ("stride_l", _LL),
+           ("node_seq", _P), ("stride_seq", _LL),
+           ("deps", _P), ("stride_deps", _LL),
+           ("work", _P), ("rho", _P), ("stride_job", _LL),
+           ("n_active", _P), ("sched_t", _P), ("sched_w", _P),
+           ("caps_job", _P), ("cap", _P), ("ring", _P)]
+        + [(name, _P) for name in _WAVE_STATE]
+        + [("iters", _P), ("max_steps", _LL), ("dt", ctypes.c_float)]
+        + [(name, ctypes.c_int)
+           for name in ("B", "N", "S", "K", "J", "D", "T", "depth", "mode")])
+
+
+def _need(t: torch.Tensor, name: str, dtype, shape, device,
+          shared_rows: bool = False) -> None:
+    """Raise unless ``t`` is what the loop kernel reads: on ``device``,
+    of ``dtype`` and ``shape``, each row contiguous, rows packed (or, with
+    ``shared_rows``, one row expanded over all with stride 0)."""
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"the wave_run kernel needs every tensor on "
+                         f"{device} (cuda): {name} is on {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: the wave_run kernel takes {dtype}, got "
+                         f"{t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} of shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    row = t[0]
+    packed = t.stride(0) == max(row.numel(), 1) or \
+        (shared_rows and t.stride(0) == 0)
+    if not (row.is_contiguous() and packed):
+        raise ValueError(f"{name}: the wave_run kernel takes contiguous "
+                         f"rows" + (" (or one row shared with stride 0)"
+                                    if shared_rows else ""))
+
+
+def _check_wave_inputs(ctx, st, pol, sched_t, sched_w, mode):
+    """Validate what the loop kernel takes; returns its dimensions."""
+    if mode not in WAVE_MODES:
+        raise ValueError(f"unknown wave mode {mode!r}; expected one of "
+                         f"{sorted(WAVE_MODES)}")
+    missing = [key for key in _MODE_TENSORS[mode] if key not in pol]
+    if missing:
+        raise ValueError(f"wave mode {mode!r} needs the policy tensors "
+                         f"{missing}")
+    if st.ptr.dim() != 2 or st.completed.dim() != 2:
+        raise ValueError("the wave_run kernel takes (B, N) lanes and "
+                         "(B, J+1) jobs")
+    b, n = st.ptr.shape
+    j1 = st.completed.shape[1]
+    if not 1 <= n <= MAX_LANES:
+        raise ValueError(f"the wave_run kernel takes 1..{MAX_LANES} lanes, "
+                         f"got {n}")
+    if b < 1 or j1 < 1:
+        raise ValueError("the wave_run kernel needs at least one row and "
+                         "the sentinel job slot")
+    dev = st.ptr.device
+    shape = {"lane": (b, n), "job": (b, j1), "row": (b,)}
+    for name, (dtype, kind) in _WAVE_STATE.items():
+        _need(getattr(st, name), name, dtype, shape[kind], dev)
+    tab = ctx.tab
+    s = tab.state_p.shape[-2]
+    for name in ("state_p", "state_f"):
+        _need(getattr(tab, name), name, torch.float32,
+              (b, s, n) if tab.stacked else (s, n), dev)
+    for name in StepTables._fields[2:]:
+        _need(getattr(tab, name), name, torch.float32,
+              (b, n) if tab.stacked else (1, n), dev)
+    k, d = ctx.node_seq.shape[-1], ctx.deps_pad.shape[-1]
+    _need(ctx.node_seq, "node_seq", torch.int32, (b, n, k), dev, True)
+    _need(ctx.deps_pad, "deps_pad", torch.int32, (b, j1, d), dev, True)
+    _need(ctx.work_pad, "work_pad", torch.float32, (b, j1), dev, True)
+    _need(ctx.rho_pad, "rho_pad", torch.float32, (b, j1), dev, True)
+    if ctx.work_pad.stride(0) != ctx.rho_pad.stride(0):
+        raise ValueError("work_pad and rho_pad must share one row layout")
+    _need(ctx.n_active, "n_active", torch.int32, (b,), dev)
+    t_cols = sched_t.shape[-1]
+    _need(sched_t, "sched_t", torch.float32, (b, t_cols), dev)
+    _need(sched_w, "sched_w", torch.float32, (b, t_cols), dev)
+    depth = 0
+    if mode == "job_caps":
+        _need(pol["caps_job"], "caps_job", torch.float32, (b, j1), dev)
+    elif mode == "heuristic":
+        depth = pol["buf"].shape[1] if pol["buf"].dim() == 3 else 0
+        _need(pol["cap"], "cap", torch.float32, (b, n), dev)
+        _need(pol["buf"], "buf", torch.float32, (b, depth, n), dev)
+        if depth < 1:
+            raise ValueError("the heuristic's ring needs depth >= 1")
+    return b, n, s, k, j1 - 1, d, t_cols, depth
+
+
+def wave_run_cuda(ctx, st, pol, sched_t, sched_w, *, mode: str, dt: float,
+                  max_steps: int) -> torch.Tensor:
+    """Run every row of a batch through its whole wave loop in one launch.
+
+    ``ctx`` and ``st`` are the engine's geometry and state
+    (:class:`~repro_torch.backends.engine.Ctx` with int32 ``node_seq`` /
+    ``deps_pad`` / ``n_active``, and
+    :class:`~repro_torch.backends.engine.State`), ``pol`` the policy's
+    tensors, ``sched_t``/``sched_w`` the ``(B, T)`` bound schedules and
+    ``mode`` a key of :data:`WAVE_MODES`.  The state (and the heuristic's
+    ``cap``/``buf``) is updated in place to where the engine's lockstep
+    loop leaves it; returns each row's loop-iteration count ``(B,)``."""
+    from repro_torch.kernels._build import check, load_library
+
+    b, n, s, k, j, d, t_cols, depth = _check_wave_inputs(
+        ctx, st, pol, sched_t, sched_w, mode)
+    lib = load_library().lib
+    iters = torch.zeros(b, dtype=torch.int64, device=st.ptr.device)
+    stride_s, stride_l = _strides(ctx.tab, n, s)
+    heur = mode == "heuristic"
+    args = _WaveArgs(
+        *(t.data_ptr() for t in ctx.tab), stride_s, stride_l,
+        ctx.node_seq.data_ptr(), ctx.node_seq.stride(0),
+        ctx.deps_pad.data_ptr(), ctx.deps_pad.stride(0),
+        ctx.work_pad.data_ptr(), ctx.rho_pad.data_ptr(),
+        ctx.work_pad.stride(0), ctx.n_active.data_ptr(),
+        sched_t.data_ptr(), sched_w.data_ptr(),
+        pol["caps_job"].data_ptr() if mode == "job_caps" else None,
+        pol["cap"].data_ptr() if heur else None,
+        pol["buf"].data_ptr() if heur else None,
+        *(getattr(st, name).data_ptr() for name in _WAVE_STATE),
+        iters.data_ptr(), int(max_steps), float(dt),
+        b, n, s, k, j, d, t_cols, depth, WAVE_MODES[mode])
+    with torch.cuda.device(st.ptr.device):
+        stream = torch.cuda.current_stream(st.ptr.device).cuda_stream
+        code = lib.repro_wave_run(ctypes.addressof(args), stream)
+    check(code, "wave_run")
+    LAUNCHES["wave_run"] += 1
+    return iters
 
 
 # --------------------------------------------------------------- dispatch

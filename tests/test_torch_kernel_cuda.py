@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: ``power_step`` (with ``waterfill``), ``rmsnorm``,
+the card: ``power_step`` (with ``waterfill``, and the whole-row wave loop
+``wave_run`` against the engine's plain and per-wave paths), ``rmsnorm``,
 ``flash_attention`` and ``ssm_scan``.  Every test here needs an NVIDIA
 GPU with ``nvcc`` and skips elsewhere; the file imports neither ``jax``
 nor ``repro``, so it runs on the GPU machine as it is:
@@ -14,9 +15,15 @@ import pytest
 import torch
 
 from repro_torch.backends.engine import TorchBatchSimulator
-from repro_torch.core.power import (heterogeneous_cluster, lut_table,
+from repro_torch.backends.policies import TorchEqualShare, TorchPolicy
+from repro_torch.core.graph import JobDependencyGraph
+from repro_torch.core.ilp import build_makespan_milp, solve_paper_ilp
+from repro_torch.core.power import (heterogeneous_cluster,
+                                    homogeneous_cluster, lut_table,
+                                    max_useful_cluster_bound,
+                                    min_feasible_cluster_bound,
                                     stack_lut_tables)
-from repro_torch.core.workloads import listing2_graph, mixed_members
+from repro_torch.core.workloads import is_like, listing2_graph, mixed_members
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import power_step as ps
@@ -109,6 +116,205 @@ def test_default_device_is_the_card(cuda_device):
                               heterogeneous_cluster(3), [6.0])
     assert sim.device.type == "cuda" and sim.impl == "cuda"
     assert sim.run()[0].makespan > 0
+
+
+# ------------------------------------------------------ whole-row loop
+#: the chip_smoke bar: rtol 1e-5 per row on makespan / energy / peak /
+#: over-budget time, the same jobs completed; the kernel rounds as the
+#: plain path does, so the max abs diff is expected to be 0.0
+WAVE_RTOL = 1e-5
+POLICIES = ("equal-share", "ilp", "ilp-makespan", "oracle", "heuristic")
+
+
+def _assignments(policy, items, bounds):
+    """Paper / makespan ILP caps solved once (5 s cap a solve) and given
+    to every path; the other policies take no arguments."""
+    if not policy.startswith("ilp"):
+        return {}
+    solver = (build_makespan_milp if policy == "ilp-makespan"
+              else solve_paper_ilp)
+    return {"assignments": [solver(g, sp, b, time_limit=5.0)
+                            for (g, sp), b in zip(items, bounds)]}
+
+
+def _max_abs_diff(got, want):
+    """Hold the results at WAVE_RTOL per row; the max abs diff over the
+    row scalars and every job's start and end stamp."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        for f in ("makespan", "energy_j", "peak_power_w",
+                  "over_budget_time"):
+            assert getattr(a, f) == pytest.approx(
+                getattr(b, f), rel=WAVE_RTOL, abs=1e-9), f
+            worst = max(worst, abs(getattr(a, f) - getattr(b, f)))
+        assert a.job_ends.keys() == b.job_ends.keys()
+        assert a.job_starts.keys() == b.job_starts.keys()
+        for k in b.job_ends:
+            worst = max(worst, abs(a.job_ends[k] - b.job_ends[k]),
+                        abs(a.job_starts[k] - b.job_starts[k]))
+    return worst
+
+
+def _cuda_vs_plain(make):
+    """Run ``make(impl)`` on the kernel path (one wave_run launch, no
+    per-wave launch) and on the plain path with liveness tested every
+    iteration; the loop counts agree and the results are held at the
+    chip_smoke bar.  Returns the kernel's simulator and the max abs
+    diff."""
+    before = dict(ps.LAUNCHES)
+    sim = make("cuda", check_every=64)
+    got = sim.run()
+    assert {k: ps.LAUNCHES[k] - before[k] for k in before} == \
+        {"power_step": 0, "waterfill": 0, "wave_run": 1}
+    plain = make("plain", check_every=1)
+    want = plain.run()
+    diff = _max_abs_diff(got, want)
+    print(f"max abs diff vs plain: {diff}")
+    assert sim.stats.path == "cuda" and plain.stats.path == "plain"
+    assert sim.stats.waves == plain.stats.waves
+    assert sim.stats.row_waves == plain.stats.row_waves
+    return sim, diff
+
+
+@pytest.mark.parametrize("workload", ["listing2", "is4"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_wave_run_matches_plain_shared(cuda_device, workload, policy):
+    """Listing 2 on three nodes and the IS analogue on a 4-node mixed
+    cluster (ragged LUTs), one graph shared by every row."""
+    if workload == "listing2":
+        graph, specs = listing2_graph(), homogeneous_cluster(3)
+        bounds = [2.5, 6.0, 12.0]
+    else:
+        graph, specs = is_like(4, "A"), heterogeneous_cluster(4)
+        lo = min_feasible_cluster_bound(specs)
+        hi = max_useful_cluster_bound(specs)
+        bounds = [lo + f * (hi - lo) for f in (0.6, 0.9)]
+    kw = _assignments(policy, [(graph, specs)] * len(bounds), bounds)
+    _cuda_vs_plain(lambda impl, **k: TorchBatchSimulator(
+        graph, specs, bounds, policy, impl=impl, **kw, **k))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_wave_run_matches_plain_padded(cuda_device, policy):
+    """The stacked mixed-family batch (phantom lanes and job slots) with
+    bound schedules that drop and recover mid-run; the ILP policies on
+    the members whose MILPs solve in well under a second."""
+    fast = ("l2", "l2r", "layered5", "forkjoin4")
+    items, bounds, scheds = [], [], []
+    for name, graph, specs, steps in mixed_members(seed=0):
+        if policy.startswith("ilp") and name not in fast:
+            continue
+        lo = min_feasible_cluster_bound(specs)
+        hi = max_useful_cluster_bound(specs)
+        for frac in (0.15, 0.4, 0.8):
+            items.append((graph, specs))
+            bounds.append(lo + frac * (hi - lo))
+            scheds.append(tuple((t, f * bounds[-1]) for t, f in steps))
+    kw = _assignments(policy, items, bounds)
+    _cuda_vs_plain(lambda impl, **k: TorchBatchSimulator.padded(
+        items, bounds, policy, bound_schedules=scheds, impl=impl, **kw,
+        **k))
+
+
+def test_wave_run_deadlock_raises_like_plain(cuda_device):
+    """Each lane's first job waits on the other lane's second job: the
+    kernel path raises the plain path's deadlock error."""
+    g = JobDependencyGraph()
+    g.add(0, 1, 5.0, deps=[(1, 2)])
+    g.add(0, 2, 5.0)
+    g.add(1, 1, 5.0, deps=[(0, 2)])
+    g.add(1, 2, 5.0)
+    for policy in ("equal-share", "heuristic"):
+        errors = []
+        for impl in ("cuda", "plain"):
+            with pytest.raises(RuntimeError, match="deadlock") as err:
+                TorchBatchSimulator(g, homogeneous_cluster(2), [6.0], policy,
+                                    impl=impl).run()
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
+
+
+def test_wave_run_max_steps_raises(cuda_device):
+    """A row out of max_steps raises on the kernel path as on the plain
+    one."""
+    for impl in ("cuda", "plain"):
+        with pytest.raises(RuntimeError, match="max steps"):
+            TorchBatchSimulator(listing2_graph(), heterogeneous_cluster(3),
+                                [6.0, 12.0], "heuristic", max_steps=50,
+                                impl=impl).run()
+
+
+def test_wave_run_stats(cuda_device):
+    """One launch; ``waves`` is the longest row's loop count, which the
+    per-wave path rounds up to a multiple of check_every; the kernel's
+    time is measured; the per-wave path's results agree."""
+    graph, specs = listing2_graph(), heterogeneous_cluster(3)
+    bounds = [3.0, 6.0, 12.0]
+    before = dict(ps.LAUNCHES)
+    sim = TorchBatchSimulator(graph, specs, bounds, "heuristic")
+    got = sim.run()
+    assert ps.LAUNCHES["wave_run"] == before["wave_run"] + 1
+    assert sim.stats.path == "cuda" and sim.stats.host_syncs == 1
+    assert sim.stats.kernel_ms > 0
+    step = TorchBatchSimulator(graph, specs, bounds, "heuristic",
+                               impl="step", check_every=64)
+    want = step.run()
+    assert step.stats.path == "step" and step.stats.kernel_ms is None
+    assert step.stats.waves == -(-sim.stats.waves // 64) * 64
+    assert ps.LAUNCHES["power_step"] - before["power_step"] == \
+        step.stats.waves
+    assert sim.stats.row_waves == step.stats.row_waves
+    print(f"max abs diff vs step: {_max_abs_diff(got, want)}")
+
+
+def test_custom_policy_runs_the_step_path(cuda_device):
+    """A policy that declares no kernel mode (here a subclass that
+    changes the caps) runs on the per-wave path by default, and asking
+    for the kernel path raises."""
+
+    class HalfShare(TorchEqualShare):
+        @staticmethod
+        def caps_fn(ctx, st, pol):
+            return 0.5 * TorchPolicy.caps_fn(ctx, st, pol)
+
+    graph, specs = listing2_graph(), homogeneous_cluster(3)
+    before = dict(ps.LAUNCHES)
+    sim = TorchBatchSimulator(graph, specs, [12.0], HalfShare())
+    res = sim.run()
+    assert sim.stats.path == "step"
+    assert ps.LAUNCHES["wave_run"] == before["wave_run"]
+    assert ps.LAUNCHES["power_step"] - before["power_step"] == \
+        sim.stats.waves
+    plain = TorchBatchSimulator(graph, specs, [12.0], HalfShare(),
+                                impl="plain").run()
+    assert _max_abs_diff(res, plain) <= 1e-4
+    with pytest.raises(ValueError, match="kernel_mode"):
+        TorchBatchSimulator(graph, specs, [12.0], HalfShare(), impl="cuda")
+
+
+def test_wave_run_rejects_what_it_cannot_take(cuda_device):
+    """The wrapper's checks on card tensors: int64 geometry, a missing
+    policy tensor, a row layout the kernel cannot stride."""
+    sim = TorchBatchSimulator(listing2_graph(), homogeneous_cluster(3),
+                              [6.0, 12.0], "heuristic")
+    ctx, st = sim._ctx(), sim._state0()
+    pol = {k: sim._tensor(v, torch.float32)
+           for k, v in sim.policy.init_state(sim).items()}
+    sched = torch.full((2, 1), ps.BIG_TIME, device=cuda_device)
+    run = lambda c, s, p: ps.wave_run_cuda(  # noqa: E731
+        c, s, p, sched, torch.zeros_like(sched), mode="heuristic", dt=0.05,
+        max_steps=1_000_000)
+    before = dict(ps.LAUNCHES)
+    with pytest.raises(ValueError, match="int32"):
+        run(ctx._replace(node_seq=ctx.node_seq.long()), st, pol)
+    with pytest.raises(ValueError, match="policy tensors"):
+        run(ctx, st, {"cap": pol["cap"]})
+    with pytest.raises(ValueError, match="contiguous rows"):
+        run(ctx, st, {**pol, "cap": pol["cap"].t().contiguous().t()})
+    assert ps.LAUNCHES == before
+    iters = run(ctx, st, pol)
+    assert ps.LAUNCHES["wave_run"] == before["wave_run"] + 1
+    assert int(iters.max()) > 0 and bool(st.done.all())
 
 
 # ------------------------------------------------------------ LM kernels

@@ -178,13 +178,13 @@ def test_row_sum_is_the_warp_order():
     """The row sum adds slot by slot per thread, then halves the 32
     threads; in exact arithmetic it is the plain sum."""
     x = torch.arange(1.0, 201.0, dtype=torch.float64).reshape(2, 100)
-    assert torch.equal(ps._row_sum(x), x.sum(-1, keepdim=True))
+    assert torch.equal(ps.row_sum(x), x.sum(-1, keepdim=True))
     v = torch.rand(3, 70, dtype=torch.float32)
     pad = torch.nn.functional.pad(v, (0, 26)).view(3, 3, 32)
     acc = pad[:, 0] + pad[:, 1] + pad[:, 2]
     for off in (16, 8, 4, 2, 1):
         acc = acc[:, :off] + acc[:, off:2 * off]
-    assert torch.equal(ps._row_sum(v), acc)
+    assert torch.equal(ps.row_sum(v), acc)
 
 
 def test_dispatch_by_device():
