@@ -55,6 +55,10 @@ TOL = 1e-5
 #: H100 SXM data-sheet peaks used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: fp32 lane instructions a second (132 SMs x 128 lanes x 1.98 GHz): the
+#: issue rate when each multiply and add is its own instruction, as the
+#: kernels are built (--fmad=false).
+FP32_LANE_OPS_PER_S = 132 * 128 * 1.98e9
 BF16_TENSOR_OPS_PER_S = 989e12
 #: LM kernels vs their plain versions (rtol and atol): the rmsnorm
 #: kernel sums in the plain version's order; flash attention's products
@@ -824,9 +828,13 @@ def phase_rmsnorm_kernel(torch, device):
         t.update(bound(2 * (2 * rows * 4096 + 4096), 4 * rows * 4096,
                        FP32_OPS_PER_S))
         times[tag] = t
+    # the per-launch floor: the device time of a one-element torch op,
+    # taken beside the decode-shape times
+    tiny = torch.zeros(8, device=device)
+    floor = device_ms(torch, lambda: tiny.add_(1), 50)
     emit("rmsnorm_kernel", cases=cases, tol=LM_TOL, max_abs_err=worst,
-         bitwise_equal=bitwise, times=times)
-    return worst, times
+         bitwise_equal=bitwise, times=times, floor_ms=floor)
+    return worst, times, floor
 
 
 def _causal_pairs(s: int, causal: bool, window: int) -> int:
@@ -939,9 +947,10 @@ def _flash_times(torch, shape, q, k, v):
 def phase_ssm_scan_kernel(torch, device):
     """ssm_scan kernel vs plain at zamba2's prefill shape (1, 80, 4096,
     64), N=64, in bf16 (the path's type) and fp32, and at two small ones
-    (N=8 below a warp, N=256 the widest state); times at the prefill
-    shape in bf16.  No single PyTorch call computes a selective scan, so
-    there is no library time."""
+    (N=8 below a warp, N=256 the widest state); with a = 0 (exp(a) = 1
+    exactly on both sides) at the prefill shape and a ragged one, held
+    bit for bit; times at the prefill shape in bf16.  No single PyTorch
+    call computes a selective scan, so there is no library time."""
     from repro_torch.kernels import ssm_scan as ss
 
     gen = torch.Generator(device=device)
@@ -974,6 +983,20 @@ def phase_ssm_scan_kernel(torch, device):
         if main is None:
             main = args
         del got, want
+    # a = 0: any change of summation order or index is a nonzero error
+    for shape, chunk, dtype in ((SSM_MAIN, SSM_CHUNK, "bfloat16"),
+                                ((1, 3, 100, 5, 40), 100, "float32")):
+        x, a, dt, bm, cm = inputs(*shape, getattr(torch, dtype))
+        a = torch.zeros_like(a)
+        got = ss.ssm_scan(x, a, dt, bm, cm, chunk=chunk)
+        want = ss.ssm_scan(x, a, dt, bm, cm, chunk=chunk, impl="plain")
+        name = "x".join(map(str, shape)) + f" chunk={chunk} {dtype} a=0"
+        err = _max_abs(torch, got, want)
+        require(bool(torch.equal(got, want)),
+                f"ssm_scan {name}: kernel vs plain not bitwise equal, max "
+                f"abs err {err:.3g}")
+        worst[name] = err
+        del got, want
     torch.cuda.synchronize()
     calls = {"ms": lambda: ss.ssm_scan(*main, chunk=SSM_CHUNK),
              "plain_ms": lambda: ss.ssm_scan(*main, chunk=SSM_CHUNK,
@@ -989,6 +1012,7 @@ def phase_ssm_scan_kernel(torch, device):
     # product, the dot's product and sum)
     nbytes = sum(t.numel() * t.element_size() for t in main) + 4 * x.numel()
     times.update(bound(nbytes, 6 * b * h * s * p * n, FP32_OPS_PER_S))
+    times["issue_floor_ms"] = 1e3 * 6 * b * h * s * p * n / FP32_LANE_OPS_PER_S
     emit("ssm_scan_kernel", tol=SSM_TOL, max_abs_err=worst, shape=SSM_MAIN,
          chunk=SSM_CHUNK, dtype="bfloat16", **times)
     return max(worst.values()), times
@@ -1271,7 +1295,7 @@ def lm_phases(torch, device, counters):
 
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
-    rms_err, rms_times = phase_rmsnorm_kernel(torch, device)
+    rms_err, rms_times, rms_floor = phase_rmsnorm_kernel(torch, device)
     fa_err, fa_times, fa_zamba = phase_flash_kernel(torch, device)
     ss_err, ss_times = phase_ssm_scan_kernel(torch, device)
     runs = {}
@@ -1302,7 +1326,8 @@ def lm_phases(torch, device, counters):
          **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                 "bound_by", "library_ms")},
          **{f"{k}_prefill": pre[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "library_ms")}},
+                                             "library_ms")},
+         "floor_ms": rms_floor},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "source_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -8,13 +8,16 @@ by every head); y ``(B, H, S, P)`` in fp32 whatever the input type, the
 state ``(P, N)`` of each (batch, head) in fp32 from zero.
 
 Both versions round as the Pallas body does in fp32: ``exp(a) * h`` and
-``dt * (x * B)`` each rounded, then their sum.  The row ``h[p, :]`` of the
-state depends on ``x[p]`` alone, so the kernel gives each row one warp,
-its lane ``l`` holding the state entries ``n = l, l + 32, ...``; the dot
-``h . C`` is summed per lane in that order and then over the lanes with
-an xor butterfly.  :func:`ssm_scan_plain` sums in that order too
-(:func:`_lane_sum`), so kernel and plain agree bit for bit where their
-``exp`` does.
+``dt * (x * B)`` each rounded, then their sum.  The dot ``h . C`` is
+summed in one fixed order: 32 "virtual lanes", lane ``v`` adding the
+products of entries ``v, v + 32, ...`` in order, then a pairwise tree over
+the lanes, adjacent ones first (``v`` with ``v ^ 1``, then ``v ^ 2``, 4,
+8, 16).  The row ``h[p, :]`` of the state depends on ``x[p]`` alone; the
+kernel gives each row 8 threads, thread ``l`` holding the virtual lanes
+``4 l .. 4 l + 3``, so the tree's first two stages are adds in its
+registers and the last three cross threads.  :func:`ssm_scan_plain` sums
+in that order too (:func:`_lane_sum`), so kernel and plain agree bit for
+bit where their ``exp`` does.
 
 ``chunk`` is the reference's sequence tile: ``S`` must be a multiple of
 ``min(chunk, S)``, as there, and the result does not depend on it.  The
@@ -39,9 +42,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.power_step import resolve_impl
 
 DEFAULT_CHUNK = 256
-#: Lanes of a warp: lane ``l`` of a row's warp holds ``n = l + 32 j``.
+#: Virtual lanes of the dot product: lane ``v`` sums entries ``n = v + 32 j``.
 LANES = 32
-#: Largest state width the kernel takes (8 entries a lane).
+#: Largest state width the kernel takes (8 entries a virtual lane).
 MAX_STATE = 8 * LANES
 
 #: Types the kernel takes for x, Bm and Cm (codes passed to the C entry
@@ -71,24 +74,25 @@ def _check(x, a, dt, Bm, Cm, chunk: int):
     return b, h, s, p, n
 
 
-def _butterfly(v: torch.Tensor) -> torch.Tensor:
-    """``(..., 32) -> (...)``: a warp's xor butterfly, in lane 0's order."""
-    for off in (16, 8, 4, 2, 1):
-        v = v[..., :off] + v[..., off:2 * off]
+def _tree(v: torch.Tensor) -> torch.Tensor:
+    """``(..., 32) -> (...)``: the pairwise tree over the virtual lanes,
+    adjacent lanes first (``v`` with ``v ^ 1``, then pairs, ...)."""
+    for _ in range(5):
+        v = v[..., 0::2] + v[..., 1::2]
     return v[..., 0]
 
 
 def _lane_sum(prod: torch.Tensor) -> torch.Tensor:
-    """``(..., N) -> (...)``: the kernel's sum over the state axis.  Lane
-    ``l`` adds entries ``l, l + 32, ...`` in order (zeros past N add
-    nothing), then the warp's butterfly adds the lanes."""
+    """``(..., N) -> (...)``: the kernel's sum over the state axis.  Virtual
+    lane ``v`` adds entries ``v, v + 32, ...`` in order (zeros past N add
+    nothing), then the tree adds the lanes."""
     n = prod.shape[-1]
     k = -(-n // LANES)
     v = F.pad(prod, (0, k * LANES - n)).unflatten(-1, (k, LANES))
     acc = v[..., 0, :]
     for j in range(1, k):
         acc = acc + v[..., j, :]
-    return _butterfly(acc)
+    return _tree(acc)
 
 
 def ssm_scan_plain(x, a, dt, Bm, Cm,

@@ -3,9 +3,9 @@
 Same seed, same graphs and LUTs; the geometry builders give equal
 arrays; the ILP gives the same assignments; ``convert.from_reference``
 carries objects across faithfully.  Also: no module of ``repro_torch``,
-and not ``chip_smoke.py`` or ``flash_probe.py``, imports ``jax`` or
-anything of ``repro``; ``chip_smoke.py`` fails without a GPU and outside
-the repository, ``flash_probe.py`` without a GPU.
+and not ``chip_smoke.py``, ``flash_probe.py`` or ``ssm_probe.py``,
+imports ``jax`` or anything of ``repro``; ``chip_smoke.py`` fails without
+a GPU and outside the repository, the probes without a GPU.
 """
 
 import os
@@ -201,6 +201,7 @@ lm = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
 assert lm <= set(names), sorted(lm - set(names))
 import chip_smoke
 import flash_probe
+import ssm_probe
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -210,8 +211,8 @@ assert not bad, bad
 
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
-    (the LM path's among them), ``chip_smoke.py`` and ``flash_probe.py``
-    loads no ``jax`` and no ``repro``."""
+    (the LM path's among them), ``chip_smoke.py``, ``flash_probe.py`` and
+    ``ssm_probe.py`` loads no ``jax`` and no ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],
@@ -244,3 +245,33 @@ def test_flash_probe_fails_without_gpu():
     proc = _run_smoke(ROOT, ROOT / "flash_probe.py")
     assert proc.returncode != 0
     assert '"probe"' not in proc.stdout
+
+
+_SSM_PROBE_VARIANTS = ("butterfly", "steps16", "steps64", "warps2", "warps8",
+                       "load1", "load4", "slots2", "unroll2", "no_fill",
+                       "no_reduce", "bc_once")
+
+
+@pytest.mark.parametrize("variant", _SSM_PROBE_VARIANTS)
+def test_ssm_probe_variant_edits_match_the_kernel(monkeypatch, variant):
+    """Each of ``ssm_probe.py``'s variants edits ``csrc/ssm_scan.cu``'s
+    text: every edit matches the source exactly once and changes it, so
+    an edit of the kernel that breaks a variant fails here, not on the
+    card."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import ssm_probe
+
+    edits = {**ssm_probe.VARIANTS, **ssm_probe.ABLATIONS}
+    assert sorted(edits) == sorted(["shipped", *_SSM_PROBE_VARIANTS])
+    text = ssm_probe.SOURCE.read_text()
+    assert ssm_probe.variant_source(text, edits["shipped"]) == text
+    assert ssm_probe.variant_source(text, edits[variant]) != text
+
+
+def test_ssm_probe_fails_without_gpu():
+    """No CUDA device: a nonzero exit, no measurement line, nothing
+    built."""
+    proc = _run_smoke(ROOT, ROOT / "ssm_probe.py")
+    assert proc.returncode != 0
+    assert '"probe"' not in proc.stdout
+    assert "no CUDA device" in proc.stderr

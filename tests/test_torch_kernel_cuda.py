@@ -497,6 +497,12 @@ def _scan_inputs(b, h, s, p, n, dtype, device, seed=0):
     (2, 3, 128, 16, 8, 64, torch.float32),        # N < 32: zero lanes
     (1, 2, 192, 32, 256, 64, torch.bfloat16),     # widest state
     (1, 1, 100, 5, 40, 100, torch.float32),       # ragged P, S, N
+    # the edges of 8 threads a row, 16 rows a block, 32-step tiles
+    (1, 2, 70, 16, 1, 70, torch.float32),         # N = 1: one live entry
+    (1, 2, 96, 20, 33, 96, torch.bfloat16),       # N = 33, P past a block
+    (1, 1, 64, 24, 255, 64, torch.float32),       # N = 255
+    (2, 3, 100, 40, 64, 100, torch.bfloat16),     # B = 2, ragged tile
+    (1, 2, 1, 17, 64, 1, torch.float32),          # one step
 ])
 def test_ssm_scan_kernel_matches_plain(cuda_device, b, h, s, p, n, chunk,
                                        dtype):
@@ -509,6 +515,25 @@ def test_ssm_scan_kernel_matches_plain(cuda_device, b, h, s, p, n, chunk,
     assert got.dtype == torch.float32 and got.shape == (b, h, s, p)
     torch.testing.assert_close(got, want, rtol=SSM_TOL[dtype],
                                atol=SSM_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,s,p,n,dtype", [
+    (1, 80, 1024, 64, 64, torch.bfloat16),        # zamba2 heads
+    (1, 3, 100, 5, 40, torch.float32),            # ragged P, S, N
+    (2, 3, 100, 40, 33, torch.bfloat16),
+    (1, 2, 70, 16, 255, torch.float32),
+])
+def test_ssm_scan_kernel_is_bitwise_when_a_is_zero(cuda_device, b, h, s, p,
+                                                  n, dtype):
+    """With a = 0 both versions take exp(a) = 1 exactly, so the kernel
+    equals the plain version bit for bit: any change of summation order
+    or index shows as a nonzero difference."""
+    x, a, dt, bm, cm = _scan_inputs(b, h, s, p, n, dtype, cuda_device,
+                                    seed=s + n)
+    a = torch.zeros_like(a)
+    got = ss.ssm_scan(x, a, dt, bm, cm, chunk=s)
+    want = ss.ssm_scan(x, a, dt, bm, cm, chunk=s, impl="plain")
+    assert torch.equal(got, want)
 
 
 def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda_device):

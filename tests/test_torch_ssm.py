@@ -123,6 +123,37 @@ def test_lane_sum_is_a_sum(n):
     assert torch.equal(ss._lane_sum(ints), ints.sum(-1))
 
 
+def _tree_sum(row: np.ndarray) -> np.float32:
+    """One row in the kernel's order, written out in fp32 scalars: virtual
+    lane ``v`` adds entries ``v, v + 32, ...`` left to right (zeros past
+    N), then the lanes pair up adjacent ones first (``v`` with ``v + 1``,
+    then pairs of pairs, ...)."""
+    k = -(-len(row) // 32)
+    padded = np.zeros(32 * k, np.float32)
+    padded[:len(row)] = row
+    lanes = []
+    for v in range(32):
+        acc = padded[v]
+        for j in range(1, k):
+            acc = np.float32(acc + padded[v + 32 * j])
+        lanes.append(acc)
+    while len(lanes) > 1:
+        lanes = [np.float32(lanes[i] + lanes[i + 1])
+                 for i in range(0, len(lanes), 2)]
+    return lanes[0]
+
+
+@pytest.mark.parametrize("n", [1, 33, 64, 255, 256])
+def test_lane_sum_sums_in_the_kernels_tree(n):
+    """The plain version's reduction over N is the kernel's: bit for bit
+    the written-out tree, and a sum to fp32 rounding."""
+    rng = np.random.default_rng(100 + n)
+    v = rng.standard_normal((4, n), dtype=np.float32)
+    got = ss._lane_sum(torch.from_numpy(v)).numpy()
+    assert np.array_equal(got, [_tree_sum(row) for row in v])
+    close(got, v.astype(np.float64).sum(-1), 1e-5)
+
+
 def test_dispatch_cpu_runs_plain_and_cuda_raises():
     _, tx = both(scan_inputs(1, 2, 32, 4, 8, 1), "float32")
     before = ss.LAUNCHES["ssm_scan"]
