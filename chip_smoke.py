@@ -514,6 +514,7 @@ def phase_full_width(torch, launches):
                           latency_floor_ms=st.waves * one_us / 1e3)
             out["latency_floor_ms_heuristic"] = fields["latency_floor_ms"]
         out[f"ms_{policy}"] = st.kernel_ms
+        out.setdefault("results", {})[policy] = res
         emit("full_width", policy=policy, path=st.path, rows=len(res),
              dims=dims, bound_w=[float(bounds[0]), float(bounds[-1])],
              wall_s=wall, kernel_ms=st.kernel_ms, waves=st.waves,
@@ -751,6 +752,188 @@ def phase_ilp(torch, launches):
          policies=["equal-share", "oracle"],
          max_rel_vs_event_simulator=golden_worst)
     return worst
+
+
+# -------------------------------------------------------- sweep phases
+def _bucket_profiles(sweep):
+    return [b.to_dict() for b in sweep.profile.buckets]
+
+
+def phase_sweep_full_width(torch, launches, fw, smi):
+    """The sweep front end at the main path's full width: the rows of
+    ``full_width`` (1024 bounds x equal-share / oracle / heuristic on IS
+    class C, N=64) as 3,072 scenarios through ``SweepEngine(executor=
+    "torch")``, with the pipeline on and off, each run with the counts
+    set to 0 just before it.  Three shared buckets, one wave_run launch
+    each, and every record equal to the ``full_width`` run of its row
+    (max abs diff 0.0).  Returns the pipelined run's launch counts."""
+    from repro_torch.core.sweep import Scenario, SweepEngine
+
+    graph, specs, bounds, _ = _full_width_case()
+    specs = tuple(specs)
+    cells = [Scenario(name="is-C-64", graph=graph, specs=specs,
+                      bound_w=float(b), policy=p, latency_s=0.05)
+             for p in FULL_WIDTH_POLICIES for b in bounds]
+    first = None
+    for pipeline in (True, False):
+        engine = SweepEngine(executor="torch", vector_dt=0.05,
+                             pipeline=pipeline)
+        for key in launches:
+            launches[key] = 0
+        t0 = time.perf_counter()
+        sweep = engine.run(cells)
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+        require(not sweep.failures,
+                f"sweep_full_width: {len(sweep.failures)} failed records, "
+                f"first: {sweep.failures[:1] and sweep.failures[0].error}")
+        require(all(r.backend == "torch" for r in sweep.records),
+                "sweep_full_width: a record left the torch backend")
+        labels = sorted({r.bucket for r in sweep.records})
+        require(len(labels) == 3 and all(b.endswith(":shared")
+                                         for b in labels),
+                f"sweep_full_width: buckets {labels}")
+        require(got == {"power_step": 0, "waterfill": 0, "wave_run": 3},
+                f"sweep_full_width: launches {got}; 3 wave_run expected")
+        abs_diff = 0.0
+        for k, policy in enumerate(FULL_WIDTH_POLICIES):
+            recs = sweep.records[k * len(bounds):(k + 1) * len(bounds)]
+            _, d = _compare_results([r.result for r in recs],
+                                    fw["results"][policy],
+                                    f"sweep_full_width {policy} vs "
+                                    f"full_width")
+            abs_diff = max(abs_diff, d)
+        require(abs_diff == 0.0, f"sweep_full_width: max abs diff "
+                                 f"{abs_diff} vs full_width")
+        prof = sweep.profile
+        emit("sweep_full_width", pipeline=pipeline, nvidia_smi=smi,
+             scenarios=len(cells), buckets=labels, wall_s=wall,
+             rows_per_s=len(cells) / wall, launches=got,
+             max_abs_diff_vs_full_width=abs_diff,
+             **{f"{ph}_s": prof.total(ph) for ph in
+                ("pack", "dispatch", "run", "transfer", "results")},
+             profile=_bucket_profiles(sweep))
+        if first is None:
+            first = got
+    return first
+
+
+MIXED_POLICIES = ("equal-share", "oracle", "heuristic", "ilp",
+                  "ilp-makespan", "learned", "countdown")
+#: policies whose batched answers match the event simulator's envelope
+EXACT_POLICIES = ("equal-share", "oracle", "ilp", "ilp-makespan")
+
+
+def _mixed_cells():
+    """The mixed family x the seven policies (bound steps on), with a
+    2 s cap a solve on the ILP cells; plus a traced cell, a cell with
+    policy kwargs and a 300-node cell."""
+    import dataclasses
+
+    from repro_torch.core import (Scenario, ep_like, homogeneous_cluster,
+                                  listing2_graph, mixed_family)
+
+    cells = [dataclasses.replace(s, ilp_time_limit=2.0)
+             if s.policy.startswith("ilp") else s
+             for s in mixed_family(seed=0,
+                                   policies=MIXED_POLICIES).scenarios()]
+    l2, l2_specs = listing2_graph(), tuple(homogeneous_cluster(3))
+    cells += [
+        Scenario("traced", l2, l2_specs, 6.0, "equal-share",
+                 trace_every=0.0),
+        Scenario("kwargs", l2, l2_specs, 6.0, "heuristic",
+                 policy_kwargs={"clamp_to_lut": False}),
+        Scenario("ep300", ep_like(300, "A", seed=1),
+                 tuple(homogeneous_cluster(300)), 1200.0, "equal-share"),
+    ]
+    return cells
+
+
+def _planned(s):
+    """(backend, fallback reason, engine path) the plan should give."""
+    if s.name == "traced":
+        return "vector", "trace-retention", None
+    if s.name == "kwargs":
+        return "event", "policy-kwargs", None
+    if s.name == "ep300":
+        return "vector", "lanes(300>256)", None
+    if s.policy == "countdown":
+        return "event", "no-vector-policy(countdown)", None
+    return "torch", None, "step" if s.policy == "learned" else "cuda"
+
+
+def phase_sweep_mixed(torch, launches):
+    """The padded path and the fallback chain: the mixed family with the
+    seven policies and the three odd cells through ``SweepEngine(
+    executor="torch")`` (counts set to 0 just before it), every record
+    on its planned backend, every torch record equal to the same sweep
+    at ``impl="plain"`` on the card (0.0), and every exact-policy record
+    inside the event simulator's envelope.  Returns the launch counts."""
+    from repro_torch.core import SweepEngine, simulate
+
+    cells = _mixed_cells()
+    engine = SweepEngine(executor="torch")
+    for key in launches:
+        launches[key] = 0
+    t0 = time.perf_counter()
+    sweep = engine.run(cells)
+    wall = time.perf_counter() - t0
+    got = dict(launches)
+    plain_engine = SweepEngine(executor="torch", impl="plain")
+    plain_engine._assignments = engine._assignments   # the same ILP caps
+    t1 = time.perf_counter()
+    plain = plain_engine.run(cells)
+    plain_wall = time.perf_counter() - t1
+    for name, sw in (("kernel", sweep), ("plain", plain)):
+        require(not sw.failures,
+                f"sweep_mixed {name}: {len(sw.failures)} failed records, "
+                f"first: {sw.failures[:1] and sw.failures[0].error}")
+    paths = {b.bucket: b.path for b in sweep.profile.buckets}
+    for rec in sweep.records:
+        backend, reason, path = _planned(rec.scenario)
+        require((rec.backend, rec.fallback_reason) == (backend, reason),
+                f"sweep_mixed {rec.scenario.name}/{rec.scenario.policy_key}"
+                f": {rec.backend}/{rec.fallback_reason}, planned "
+                f"{backend}/{reason}")
+        if path is not None:
+            require(paths[rec.bucket] == path,
+                    f"sweep_mixed {rec.bucket}: path {paths[rec.bucket]}, "
+                    f"expected {path}")
+    n_cuda = sum(p == "cuda" for p in paths.values())
+    require(got["wave_run"] == n_cuda and got["power_step"] > 0
+            and got["waterfill"] == 0,
+            f"sweep_mixed: launches {got}, {n_cuda} wave_run buckets")
+    torch_recs = [(a, b) for a, b in zip(sweep.records, plain.records)
+                  if a.backend == "torch"]
+    _, abs_diff = _compare_results([a.result for a, _ in torch_recs],
+                                   [b.result for _, b in torch_recs],
+                                   "sweep_mixed kernel vs plain")
+    require(abs_diff == 0.0, f"sweep_mixed: max abs diff {abs_diff} vs "
+                             f"impl='plain'")
+    worst_ms = worst_e = 0.0
+    for rec in sweep.records:
+        s = rec.scenario
+        if s.policy_key not in EXACT_POLICIES or s.policy_kwargs:
+            continue
+        ev = simulate(s.graph, list(s.specs), s.bound_w, s.policy,
+                      assignment=engine._assignments.assignment_for(s),
+                      latency_s=s.latency_s,
+                      bound_schedule=s.bound_schedule)
+        d_ms = abs(rec.result.makespan - ev.makespan)
+        d_e = abs(rec.result.energy_j - ev.energy_j) / ev.energy_j
+        require(d_ms <= 2 * 0.05 and d_e <= 0.01,
+                f"sweep_mixed {s.name}/{s.policy_key}@{s.bound_w}: "
+                f"makespan {rec.result.makespan} vs event {ev.makespan}, "
+                f"energy {rec.result.energy_j} vs {ev.energy_j}")
+        worst_ms, worst_e = max(worst_ms, d_ms), max(worst_e, d_e)
+    emit("sweep_mixed", scenarios=len(cells), wall_s=wall,
+         plain_wall_s=plain_wall, launches=got,
+         summary=sweep.backend_summary(),
+         max_abs_diff_vs_plain=abs_diff, torch_records=len(torch_recs),
+         max_makespan_diff_vs_event_s=worst_ms,
+         max_energy_rel_vs_event=worst_e,
+         profile=_bucket_profiles(sweep))
+    return got
 
 
 # ------------------------------------------------------------ LM phases
@@ -1365,8 +1548,9 @@ def _counters():
     return (ps.LAUNCHES, rn.LAUNCHES, fa.LAUNCHES, ss.LAUNCHES)
 
 
-def sim_phases(torch, device, counters):
-    """The wave engine's phases; returns its kernels' entries."""
+def sim_phases(torch, device, counters, smi):
+    """The wave engine's and the sweep front end's phases; returns their
+    kernels' entries."""
     from repro_torch.kernels import power_step as ps
 
     worst, times, bounds = phase_kernel(torch, device)
@@ -1377,6 +1561,9 @@ def sim_phases(torch, device, counters):
     phase_profile(torch)
     padded_diff = phase_padded(torch, ps.LAUNCHES)
     ilp_diff = phase_ilp(torch, ps.LAUNCHES)
+    sweep_fw = phase_sweep_full_width(torch, ps.LAUNCHES, fw, smi)
+    del fw["results"]
+    sweep_mixed = phase_sweep_mixed(torch, ps.LAUNCHES)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
     per_wave = ("the per-wave entry points run on the engine's \"step\" "
@@ -1387,6 +1574,8 @@ def sim_phases(torch, device, counters):
          "replaces": "src/repro/kernels/power_step.py:195",
          "replaces_loop": "src/repro/backends/jax/engine.py:211",
          "launches": main_launches["wave_run"],
+         "launches_sweep_full_width": sweep_fw["wave_run"],
+         "launches_sweep_mixed": sweep_mixed["wave_run"],
          "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
          "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
          "ms_heuristic": fw["ms_heuristic"],
@@ -1402,7 +1591,10 @@ def sim_phases(torch, device, counters):
         {"name": "power_step", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/power_step.py:195",
          "launches": step_launches["power_step"],
-         "launches_main": main_launches["power_step"], "note": per_wave,
+         "launches_main": main_launches["power_step"],
+         "launches_sweep_mixed": sweep_mixed["power_step"],
+         "note": per_wave + "; launches_sweep_mixed the learned "
+                            "policy's, in phase sweep_mixed",
          "max_abs_err": worst["power_step"][0],
          "ms": times["power_step_ms"],
          "plain_ms": times["power_step_plain_ms"],
@@ -1450,7 +1642,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln
                 or ln.startswith("[")])
 
-    kernels = sim_phases(torch, device, _counters())
+    kernels = sim_phases(torch, device, _counters(), smi)
     kernels += run_lm_phases()
     for entry in kernels:    # each source's nvcc seconds in this run
         entry["build_s"] = kl.source_s.get(Path(entry["source"]).name)

@@ -2,13 +2,16 @@
 
 A second package beside the JAX reference (``repro``), which it never
 imports: the numpy geometry, LUT and ILP modules it needs are its own
-copies (``repro_torch.core``).  The main path is the batched wave engine
-(:class:`~repro_torch.backends.engine.TorchBatchSimulator`), whose hot
-step is one call per wave into the fused ``power_step`` kernel
+copies (``repro_torch.core``, ``repro_torch.policies``).  The main path
+is a sweep (:class:`~repro_torch.core.sweep.SweepEngine` with
+``executor="torch"``) that buckets scenarios onto the batched wave
+engine (:class:`~repro_torch.backends.engine.TorchBatchSimulator`),
+which runs each bucket in one launch of the ``wave_run`` kernel
 (``kernels/csrc/power_step.cu``, built with ``nvcc`` on first use).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
     from repro_torch import simulate_batch_torch, TorchBatchSimulator
+    from repro_torch.core import SweepEngine, mixed_family
 """
 
 from repro_torch.backends.engine import (TorchBatchSimulator,

@@ -44,6 +44,16 @@ sync.  The host syncs only to test whether any row is still live, every
 ``check_every`` iterations; later iterations on finished rows change
 nothing, so the results do not depend on ``check_every``.
 
+A run splits in two, as the reference's does:
+:meth:`~TorchBatchSimulator.dispatch` packs the batch, uploads it from
+pinned host memory (so the copy does not wait for a kernel still running
+on the stream) and launches it; :meth:`~TorchBatchSimulator.fetch`
+waits, brings the state back in one device-to-host copy and builds the
+results.  The sweep executor
+(:mod:`repro_torch.core.sweep`) dispatches every bucket before it
+fetches the first, so the card runs later buckets while the host builds
+earlier buckets' results.
+
 Numerics: float32 throughout, like the reference.  Job completion is
 decided by time (``t_fin <= delta``), never by a residual-work epsilon.
 """
@@ -51,6 +61,7 @@ decided by time (``t_fin <= delta``), never by a residual-work epsilon.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -67,9 +78,11 @@ from repro_torch.core.results import OVER_BUDGET_RTOL, SimResult
 from repro_torch.kernels.power_step import (BIG_TIME, StepTables,
                                             power_step, step_tables,
                                             wave_run_cuda)
+from repro_torch.obs import trace as obs_trace
 
 from .policies import (TorchPolicy, current_jobs, get_torch_policy,
                        kernel_mode)
+from .profile import BucketProfile
 
 #: Anything above this is "no event" (see power_step's BIG_TIME).
 _BIG_CUT = BIG_TIME * 0.5
@@ -116,6 +129,27 @@ class State:
     end_t: torch.Tensor       # (B, J+1) NaN until completed, slot J junk
     tick_count: torch.Tensor  # (B,) int64
     steps: torch.Tensor       # (B,) int64 waves taken
+
+
+#: The state fields :meth:`TorchBatchSimulator.fetch` brings back, in
+#: the order they are packed (8-byte, 4-byte, then 1-byte items, so every
+#: field of the packed buffer is aligned for its type).
+_FETCHED = ("steps", "makespan", "energy", "peak", "over_t", "start_t",
+            "end_t", "completed", "done", "stalled")
+
+
+@dataclass
+class PendingBatch:
+    """A dispatched batch: its state on the device, what the launch
+    returns, and its profile (:meth:`TorchBatchSimulator.fetch` fills in
+    the fields after the dispatch)."""
+
+    st: State
+    profile: BucketProfile
+    iters: Optional[torch.Tensor] = None   # wave_run's per-row counts
+    events: Optional[Tuple] = None         # (start, end) CUDA events
+    waves: int = 0                         # lockstep iterations
+    syncs: int = 0                         # lockstep liveness checks
 
 
 class RunStats(NamedTuple):
@@ -337,8 +371,17 @@ class TorchBatchSimulator:
         return self.arrays.n_nodes
 
     def _tensor(self, a, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device) \
-            .to(dtype).contiguous()
+        return self._upload(torch.as_tensor(np.asarray(a)).to(dtype))
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device.  To the card it goes
+        from pinned memory without blocking: a copy from pageable memory
+        would wait for every kernel queued on the stream, so a batch
+        dispatched behind another would wait for that one's run."""
+        t = t.contiguous()
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _ctx(self) -> Ctx:
         a = self.arrays
@@ -351,14 +394,15 @@ class TorchBatchSimulator:
             return t if self.stacked else t.unsqueeze(0).expand(
                 b, *t.shape)
 
-        return Ctx(tab=step_tables(a.table, self.device, FLOAT),
+        tab = StepTables(*map(self._upload, step_tables(a.table, "cpu",
+                                                        FLOAT)))
+        return Ctx(tab=tab,
                    node_seq=rows(a.node_seq, index),
                    deps_pad=rows(a.deps_pad, index),
                    work_pad=rows(a.work_pad, FLOAT),
                    rho_pad=rows(a.rho_pad, FLOAT),
                    n_active=self._tensor(self.n_active, index),
-                   dt=torch.tensor(self.dt, dtype=FLOAT,
-                                   device=self.device),
+                   dt=self._tensor(self.dt, FLOAT),
                    impl="plain" if self.impl == "plain" else "cuda")
 
     def _state0(self) -> State:
@@ -478,8 +522,22 @@ class TorchBatchSimulator:
                 if not bool(self._live(st)):
                     return waves, syncs
 
-    def run(self) -> List[SimResult]:
-        """Run the batch to the end of every row; one result per row."""
+    def dispatch(self) -> PendingBatch:
+        """Pack, upload and launch the batch; returns its handle for
+        :meth:`fetch`.
+
+        On the ``"cuda"`` path this is one asynchronous ``wave_run``
+        launch between two CUDA events, and it returns without waiting
+        for the card.  The ``"step"`` and ``"plain"`` paths run their
+        lockstep loop here, which syncs with the host every
+        ``check_every`` iterations, so their dispatch runs (nearly) to
+        completion.  ``profile.compiled`` is true when this dispatch
+        built the kernel library (the per-wave paths build it at their
+        first launch)."""
+        from repro_torch.kernels._build import load_library
+
+        prof = BucketProfile(rows=self.n_rows, path=self.impl)
+        t0 = time.perf_counter()
         pol = {k: self._tensor(v, torch.bool if np.asarray(v).dtype == bool
                                else FLOAT)
                for k, v in self.policy.init_state(self).items()}
@@ -491,29 +549,106 @@ class TorchBatchSimulator:
             sched_t = torch.full((self.n_rows, 1), BIG_TIME, dtype=FLOAT,
                                  device=self.device)
             sched_w = torch.zeros_like(sched_t)
+        prof.cache_key = (tuple(ctx.work_pad.shape),
+                          tuple(ctx.node_seq.shape), self.impl,
+                          self.policy.name)
+        t1 = time.perf_counter()
+        prof.pack_s = t1 - t0
+        unbuilt = (self.impl != "plain"
+                   and load_library.cache_info().currsize == 0)
+        pending = PendingBatch(st=st, profile=prof)
+        if self.device.type == "cuda":
+            pending.events = tuple(torch.cuda.Event(enable_timing=True)
+                                   for _ in range(2))
+            pending.events[0].record()
         if self.impl == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            iters = wave_run_cuda(ctx, st, pol, sched_t, sched_w,
-                                  mode=kernel_mode(self.policy), dt=self.dt,
-                                  max_steps=self.max_steps)
-            end.record()
-            syncs = 0
+            pending.iters = wave_run_cuda(
+                ctx, st, pol, sched_t, sched_w, mode=kernel_mode(self.policy),
+                dt=self.dt, max_steps=self.max_steps)
         else:
-            waves, syncs = self._lockstep(ctx, st, pol, sched_t, sched_w)
-        out = {k: getattr(st, k).cpu().numpy()
-               for k in ("makespan", "energy", "peak", "over_t", "start_t",
-                         "end_t", "completed", "done", "stalled", "steps")}
-        kernel_ms = None
+            pending.waves, pending.syncs = self._lockstep(ctx, st, pol,
+                                                          sched_t, sched_w)
+        if pending.events is not None:
+            pending.events[1].record()
+        prof.dispatch_s = time.perf_counter() - t1
+        prof.compiled = unbuilt and load_library().build_s > 0
+        prof.compile_s = load_library().build_s if prof.compiled else 0.0
+        if obs_trace.enabled():
+            args = {"rows": self.n_rows, "path": self.impl}
+            obs_trace.complete("pack", t0, prof.pack_s, cat="engine",
+                               track="engine", args=args)
+            obs_trace.complete("compile" if prof.compiled else "dispatch",
+                               t1, prof.dispatch_s, cat="engine",
+                               track="engine",
+                               args=dict(args, compiled=prof.compiled))
+        return pending
+
+    def fetch(self, pending: PendingBatch) -> List[SimResult]:
+        """Wait for a dispatched batch and build its results.
+
+        ``run_s`` is the wait left at fetch time; then one device-to-host
+        copy brings back every state field (``transfer_s``), and the
+        results are built on the host (``results_s``).  On the card the
+        copy runs on a stream of its own that waits for this batch's end
+        event only: on the launch stream it would also wait for every
+        batch dispatched after this one."""
+        prof = pending.profile
+        t0 = time.perf_counter()
+        if pending.events is not None:
+            pending.events[1].synchronize()
+        t1 = time.perf_counter()
+        prof.run_s = t1 - t0
+        if pending.events is not None:
+            copier = torch.cuda.Stream(self.device)
+            copier.wait_event(pending.events[1])
+            with torch.cuda.stream(copier):
+                out = self._transfer(pending)
+        else:
+            out = self._transfer(pending)
+        t2 = time.perf_counter()
+        prof.transfer_s = t2 - t1
         if self.impl == "cuda":
-            waves = int(iters.max())
-            kernel_ms = start.elapsed_time(end)
+            waves, syncs = int(out["iters"].max()), 0
+            prof.kernel_ms = pending.events[0].elapsed_time(pending.events[1])
+        else:
+            waves, syncs = pending.waves, pending.syncs
         self.stats = RunStats(path=self.impl, waves=waves,
                               row_waves=int(out["steps"].sum()),
-                              host_syncs=syncs + 1, kernel_ms=kernel_ms)
+                              host_syncs=syncs + 1, kernel_ms=prof.kernel_ms)
         self._check_failures(out)
-        return self._results(out)
+        results = self._results(out)
+        prof.results_s = time.perf_counter() - t2
+        if obs_trace.enabled():
+            args = {"rows": self.n_rows, "path": self.impl}
+            for name, start, dur in (("run", t0, prof.run_s),
+                                     ("transfer", t1, prof.transfer_s),
+                                     ("results", t2, prof.results_s)):
+                obs_trace.complete(name, start, dur, cat="engine",
+                                   track="engine", args=args)
+        return results
+
+    def run(self) -> List[SimResult]:
+        """Run the batch to the end of every row; one result per row
+        (dispatch, then fetch)."""
+        return self.fetch(self.dispatch())
+
+    @staticmethod
+    def _transfer(pending: PendingBatch) -> Dict[str, np.ndarray]:
+        """Every fetched state field (and wave_run's loop counts) in one
+        device-to-host copy: the fields' bytes packed into one buffer on
+        the device, then split on the host."""
+        fields = [(name, getattr(pending.st, name)) for name in _FETCHED]
+        if pending.iters is not None:
+            fields.insert(0, ("iters", pending.iters))
+        buf = torch.cat([t.reshape(-1).view(torch.uint8)
+                         for _, t in fields]).cpu().numpy()
+        out, at = {}, 0
+        for name, t in fields:
+            dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+            size = t.numel() * dtype.itemsize
+            out[name] = buf[at:at + size].view(dtype).reshape(t.shape)
+            at += size
+        return out
 
     def _check_failures(self, out: Dict[str, np.ndarray]) -> None:
         if out["stalled"].any():

@@ -16,6 +16,9 @@ the per-row policy state (numpy, leading row axis B); the engine moves it
 to the device.  ``redistribute=True`` hands cap setting to the fused
 power step's reclamation / water-fill stage (the oracle rule).
 
+``learned`` declares no mode: on the card it runs on the engine's
+``"step"`` path (one ``power_step`` launch a wave), its MLP in torch.
+
 ``kernel_mode`` names the cap rule the whole-row CUDA loop
 (``wave_run`` in :mod:`repro_torch.kernels.power_step`) runs in place of
 ``caps_fn``/``tick_fn``: a key of ``WAVE_MODES``.  It is read from the
@@ -228,3 +231,72 @@ class TorchOnlineHeuristic(TorchPolicy):
         old = buf.gather(1, slot2.view(b, 1, 1).expand(b, 1, n)).squeeze(1)
         cap = torch.where(ripe.unsqueeze(-1), old, pol["cap"])
         return {"buf": buf, "cap": cap}
+
+
+class _TorchXP:
+    """The array namespace the learned policy's xp-generic math
+    (:mod:`repro_torch.policies.learned`) calls, on torch tensors: the
+    names where torch's spelling or argument types differ from numpy's
+    (``maximum`` with a float, ``max`` with ``axis``/``keepdims``,
+    ``stack`` with ``axis``)."""
+
+    exp = staticmethod(torch.exp)
+    tanh = staticmethod(torch.tanh)
+    where = staticmethod(torch.where)
+    ones_like = staticmethod(torch.ones_like)
+
+    @staticmethod
+    def maximum(a: torch.Tensor, b) -> torch.Tensor:
+        return torch.maximum(a, torch.as_tensor(b, dtype=a.dtype,
+                                                device=a.device))
+
+    @staticmethod
+    def max(a: torch.Tensor, axis: int, keepdims: bool = False):
+        return torch.amax(a, dim=axis, keepdim=keepdims)
+
+    @staticmethod
+    def stack(tensors, axis: int = 0) -> torch.Tensor:
+        return torch.stack(list(tensors), dim=axis)
+
+
+@register_torch_policy("learned")
+class TorchLearned(TorchPolicy):
+    """Gradient-trained MLP cap split, recomputed every wave.
+
+    The math is the shared xp-generic core of
+    :mod:`repro_torch.policies.learned` called with torch (float32, the
+    engine's type), so the trained parameters mean the same thing as in
+    the event and vector adapters.  Waves land exactly on state
+    transitions, so recomputing the split at the top of each wave is the
+    event adapter's recompute-on-every-edge.  The weights are shared by
+    every row, so its state leaves carry no row axis.  No
+    ``kernel_mode``: on the card it runs on the ``"step"`` path.
+    ``exact=False``: float32 rounding can flip an LUT state against the
+    float64 event adapter.
+    """
+
+    name = "learned"
+    exact = False
+
+    def __init__(self, checkpoint: Optional[str] = None):
+        from repro_torch.policies.learned import load_checkpoint
+
+        self.params = load_checkpoint(checkpoint)
+
+    def init_state(self, sim) -> Dict[str, np.ndarray]:
+        return {f"mlp_{k}": np.asarray(v) for k, v in self.params.items()}
+
+    @staticmethod
+    def caps_fn(ctx, st, pol) -> torch.Tensor:
+        from repro_torch.policies.learned import compute_caps
+
+        params = {k[4:]: v for k, v in pol.items() if k.startswith("mlp_")}
+        rho = ctx.rho_pad.gather(1, current_jobs(ctx, st))
+        lanes = rho.shape
+        return compute_caps(
+            _TorchXP, params, running=st.running,
+            rho=torch.where(st.running, rho, 0.0), bound=st.bound,
+            n_active=ctx.n_active.to(rho.dtype),
+            p_max=ctx.tab.p_max.expand(lanes),
+            cap_floor=ctx.tab.cap_floor.expand(lanes),
+            idle_w=ctx.tab.idle_w.expand(lanes))

@@ -2,8 +2,9 @@
 
 The port's own numpy copy of the reference's ``repro.core.power``: the
 LUTs, the cluster presets, the stacked :class:`LUTTable` and its phantom
-padding convention.  The numpy batch translators are left out (the port
-translates caps inside :mod:`repro_torch.kernels.power_step`).
+padding convention, and the scalar and batched numpy translators the
+port's event and vector simulators run (the torch engine translates caps
+inside :mod:`repro_torch.kernels.power_step`).
 
 The paper abstracts DVFS into a finite lookup table measured per node:
 CPU frequency -> full-load power, plus idle power, and — for multicore
@@ -136,6 +137,13 @@ def job_time(job: Job, freq_mhz: float, f_nom_mhz: float,
     return (job.work / speed) * slowdown
 
 
+def progress_rate(job: Job, freq_mhz: float, f_nom_mhz: float,
+                  speed: float = 1.0) -> float:
+    """Work-units per second while running at ``freq_mhz`` (simulator use)."""
+    return job.work / job_time(job, freq_mhz, f_nom_mhz, speed) \
+        if job.work > 0 else float("inf")
+
+
 # ----------------------------------------------------- sub-p_min duty states
 #: Progress floor for caps at/below idle power — a granted bound can never
 #: fully halt a node (it would deadlock the program); physical power capping
@@ -181,6 +189,11 @@ def op_time(job: Job, op: OperatingPoint, f_nom_mhz: float,
             speed: float = 1.0) -> float:
     """tau(J, operating point): duty cycling stretches time by 1/duty."""
     return job_time(job, op.freq_mhz, f_nom_mhz, speed) / op.duty
+
+
+def op_rate(job: Job, op: OperatingPoint, f_nom_mhz: float,
+            speed: float = 1.0) -> float:
+    return op.duty * progress_rate(job, op.freq_mhz, f_nom_mhz, speed)
 
 
 def cap_floor_w(lut: PowerLUT) -> float:
@@ -252,6 +265,41 @@ def lut_table(specs: Sequence[NodeSpec]) -> LUTTable:
         span=p_min - idle,
         speed=np.array([s.speed for s in specs]),
         cap_floor=np.array([cap_floor_w(s.lut) for s in specs]))
+
+
+
+def batched_operating_point(table: LUTTable, caps_w: np.ndarray
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized :func:`operating_point`: caps ``(B, N)`` -> (freq, duty,
+    power), each ``(B, N)``.  Elementwise-identical to the scalar
+    translator, including the sub-``p_min`` duty states.  ``table`` holds
+    one cluster shared by every row (``(N, S)`` state tables) or one per
+    row (``(B, N, S)`` from :func:`stack_lut_tables`)."""
+    fits = table.state_p <= caps_w[..., None] + 1e-12
+    idx = fits.sum(axis=-1) - 1            # highest fitting state, -1 if none
+    has_state = idx >= 0
+    idx_c = np.maximum(idx, 0)[..., None]
+    shape = caps_w.shape + (table.state_p.shape[-1],)
+    freq_fit = np.take_along_axis(
+        np.broadcast_to(table.state_f, shape), idx_c, -1)[..., 0]
+    power_fit = np.take_along_axis(
+        np.broadcast_to(table.state_p, shape), idx_c, -1)[..., 0]
+    q = (caps_w - table.idle_w) / table.span
+    q = np.clip(q, DUTY_FLOOR, 1.0)
+    freq = np.where(has_state, freq_fit, np.broadcast_to(table.f_min,
+                                                         caps_w.shape))
+    duty = np.where(has_state, 1.0, q)
+    power = np.where(has_state, power_fit, table.idle_w + q * table.span)
+    return freq, duty, power
+
+
+def batched_rates(table: LUTTable, freq: np.ndarray, duty: np.ndarray,
+                  cpu_frac: np.ndarray) -> np.ndarray:
+    """Vectorized :func:`op_rate` per unit of work: work-units per second
+    for a job with ``cpu_frac`` at (freq, duty).  Accepts shared ``(N,)``
+    or per-row ``(B, N)`` table leaves."""
+    slowdown = cpu_frac * (table.f_nom / freq) + (1.0 - cpu_frac)
+    return table.speed * duty / slowdown
 
 
 #: Phantom-lane table values used to pad heterogeneous buckets: a phantom

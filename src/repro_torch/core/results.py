@@ -31,6 +31,11 @@ class SimResult:
                                                    default_factory=list)
     job_starts: Dict[JobId, float] = field(repr=False, default_factory=dict)
     job_ends: Dict[JobId, float] = field(repr=False, default_factory=dict)
+    #: Per-node power samples ``(t, (p_node0, p_node1, ...))`` in
+    #: ``graph.nodes`` order, recorded by the event simulator only under
+    #: ``node_trace=True``, at the cadence of :attr:`power_trace`.
+    node_power_trace: List[Tuple[float, Tuple[float, ...]]] = field(
+        repr=False, default_factory=list)
 
     def speedup_vs(self, baseline: "SimResult") -> float:
         """``baseline.makespan / self.makespan``; a zero-makespan result

@@ -1,14 +1,21 @@
-"""String-keyed policy registry.
+"""String-keyed policy registries.
 
-``register("name")`` decorates a policy class (or any keyword-arg
-factory); ``get("name", **kwargs)`` builds a fresh instance.  The torch
-engine's policies (:mod:`repro_torch.backends.policies`) keep their
-table in one :class:`PolicyRegistry`.
+``register_policy("name")`` decorates a
+:class:`~repro_torch.policies.base.PowerPolicy` subclass (or any
+keyword-arg factory); ``get_policy("name", **kwargs)`` builds a fresh
+instance.  The event simulator and the sweep engine resolve event
+policies through this table.  The vector policies
+(:mod:`repro_torch.policies.vector`) and the torch engine's policies
+(:mod:`repro_torch.backends.policies`) each keep a table of the same
+shape: :class:`PolicyRegistry` is the one implementation behind all
+three.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
+
+from .base import PowerPolicy
 
 
 class PolicyRegistry:
@@ -60,3 +67,20 @@ class PolicyRegistry:
 
     def names(self) -> List[str]:
         return sorted(self._table)
+
+
+_EVENT = PolicyRegistry(PowerPolicy)
+
+
+def register_policy(name: str, *aliases: str):
+    """Class decorator: register a policy factory under ``name`` (+aliases)."""
+    return _EVENT.register(name, *aliases)
+
+
+def get_policy(name: str, **kwargs) -> PowerPolicy:
+    """Instantiate a registered event policy by key."""
+    return _EVENT.get(name, **kwargs)
+
+
+def available_policies() -> List[str]:
+    return _EVENT.names()

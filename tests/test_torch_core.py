@@ -192,13 +192,22 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-lm = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
-      "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
-      "repro_torch.kernels.ref", "repro_torch.models.layers",
-      "repro_torch.models.attention", "repro_torch.models.model",
-      "repro_torch.serving.engine", "repro_torch.launch.steps",
-      "repro_torch.launch.serve"}}
-assert lm <= set(names), sorted(lm - set(names))
+named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
+         "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
+         "repro_torch.kernels.ref", "repro_torch.models.layers",
+         "repro_torch.models.attention", "repro_torch.models.model",
+         "repro_torch.serving.engine", "repro_torch.launch.steps",
+         "repro_torch.launch.serve", "repro_torch.core.block_detector",
+         "repro_torch.core.heuristic", "repro_torch.core.simulator",
+         "repro_torch.core.batchsim", "repro_torch.core.sweep",
+         "repro_torch.core.scenarios", "repro_torch.policies.base",
+         "repro_torch.policies.equal_share",
+         "repro_torch.policies.ilp_static",
+         "repro_torch.policies.online_heuristic",
+         "repro_torch.policies.oracle", "repro_torch.policies.countdown",
+         "repro_torch.policies.vector", "repro_torch.policies.learned",
+         "repro_torch.obs.trace", "repro_torch.backends.profile"}}
+assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe
 import ssm_probe
@@ -211,8 +220,9 @@ assert not bad, bad
 
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
-    (the LM path's among them), ``chip_smoke.py``, ``flash_probe.py`` and
-    ``ssm_probe.py`` loads no ``jax`` and no ``repro``."""
+    (the LM path's and the sweep front end's among them),
+    ``chip_smoke.py``, ``flash_probe.py`` and ``ssm_probe.py`` loads no
+    ``jax`` and no ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],

@@ -579,3 +579,63 @@ def test_hybrid_forward_on_card_counts_launches(cuda_device):
     assert after == (before[0] + 2 * cfg.n_layers + 2 * n_super + 1,
                      before[1] + cfg.n_layers, before[2] + n_super)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ dispatch/fetch, sweep
+def _exact(got, want):
+    for a, b in zip(got, want):
+        for f in ("makespan", "energy_j", "peak_power_w",
+                  "over_budget_time", "job_starts", "job_ends"):
+            assert getattr(a, f) == getattr(b, f), f
+
+
+def test_dispatch_fetch_equals_run_on_the_card(cuda_device):
+    """``fetch(dispatch())`` is ``run()`` on the wave_run path, and two
+    batches dispatched back to back and fetched in reverse order give
+    the results each gives alone."""
+    items = [(g, sp) for _, g, sp, _ in mixed_members(seed=0)]
+    bounds = [sum(s.lut.p_max for s in sp) * 0.6 for _, sp in items]
+    a = TorchBatchSimulator.padded(items, bounds, "heuristic")
+    b = TorchBatchSimulator(is_like(8, "A"), heterogeneous_cluster(8),
+                            np.linspace(20.0, 60.0, 64), "oracle")
+    want_a, want_b = a.run(), b.run()
+    before = ps.LAUNCHES["wave_run"]
+    pa, pb = a.dispatch(), b.dispatch()
+    assert ps.LAUNCHES["wave_run"] == before + 2
+    got_b, got_a = b.fetch(pb), a.fetch(pa)
+    _exact(got_a, want_a)
+    _exact(got_b, want_b)
+    for p in (pa.profile, pb.profile):
+        assert p.path == "cuda" and p.kernel_ms > 0
+        assert min(p.pack_s, p.dispatch_s, p.run_s, p.transfer_s,
+                   p.results_s) >= 0
+
+
+def test_sweep_on_the_card_matches_plain_and_plans_wide_rows_to_vector(
+        cuda_device):
+    """The torch executor on the card (device None) against the same
+    sweep at ``impl="plain"`` on the card, bit for bit; a 300-node
+    scenario plans to the vector backend with its own reason."""
+    from repro_torch.core import (Scenario, SweepEngine, ep_like,
+                                  mixed_family)
+
+    cells = mixed_family(seed=0, bound_fracs=(0.4, 0.8),
+                         policies=("equal-share", "oracle", "heuristic",
+                                   "learned")).scenarios()
+    wide = Scenario("ep300", ep_like(300, "A", seed=1),
+                    tuple(homogeneous_cluster(300)), 1200.0, "equal-share")
+    cells.append(wide)
+    before = dict(ps.LAUNCHES)
+    sweep = SweepEngine(executor="torch").run(cells)
+    got = {k: ps.LAUNCHES[k] - before[k] for k in before}
+    plain = SweepEngine(executor="torch", impl="plain").run(cells)
+    assert not sweep.failures and not plain.failures
+    assert sweep.records[-1].backend == "vector"
+    assert sweep.records[-1].fallback_reason == "lanes(300>256)"
+    paths = {b.path for b in sweep.profile.buckets}
+    assert paths == {"cuda", "step"}            # learned: per-wave path
+    n_cuda = sum(b.path == "cuda" for b in sweep.profile.buckets)
+    assert got["wave_run"] == n_cuda and got["power_step"] > 0
+    for a, b in zip(sweep.records, plain.records):
+        assert a.backend == b.backend and a.bucket == b.bucket
+        _exact([a.result], [b.result])

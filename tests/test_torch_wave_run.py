@@ -115,11 +115,13 @@ def test_registry_policy_declares_its_kernel_mode(name):
 
 
 def test_every_registered_policy_has_a_mode_and_subclasses_do_not():
-    """Aliases included, every registry key resolves to a policy with a
-    mode; a mode is not inherited, so a subclass that changes the cap
-    functions (or the base class) has none."""
+    """Aliases included, every registry key but ``learned`` resolves to a
+    policy with a mode (``learned`` declares none and runs on the
+    per-wave path); a mode is not inherited, so a subclass that changes
+    the cap functions (or the base class) has none."""
     for key in torch_policies():
-        assert kernel_mode(get_torch_policy(key)) is not None, key
+        mode = kernel_mode(get_torch_policy(key))
+        assert (mode is None) == (key == "learned"), key
     assert kernel_mode(HalfShare()) is None
     assert kernel_mode(TorchPolicy()) is None
     assert HalfShare.kernel_mode == "nominal"      # the attribute is there
