@@ -969,8 +969,12 @@ def phase_rmsnorm_kernel(torch, device):
     """rmsnorm kernel vs plain at llama3-8b's shapes (decode 8 x 4096 and
     prefill 4096 x 4096 rows) and a ragged row count, bf16 and fp32,
     both rounding forms, and at zamba2-2.7b's (8 and 4096 rows of 2560,
-    and of 5120 for the gated norm; bf16, the layer's form); times at
-    llama's decode and prefill shapes."""
+    and of 5120 for the gated norm; bf16, the layer's form); then the
+    rows the vector path does not take (d = 1001, an x one element off
+    its 16-byte alignment, a row of 20,000).  Every case must equal the
+    plain version bit for bit.  Times (device, host-included call, and
+    ``F.rms_norm``'s) at the decode shapes of both models and llama's
+    prefill shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as rn
@@ -982,9 +986,17 @@ def phase_rmsnorm_kernel(torch, device):
               for dtype in ("bfloat16", "float32")]
     shapes += [(rows, d, "bfloat16", (True,))
                for rows in (SERVE_BATCH, PREFILL_SEQ) for d in (2560, 5120)]
-    for rows, d, dtype, forms in shapes:
+    # the strided kernel: a width that is no multiple of 16 bytes, an x
+    # off its alignment (offset 1), more chunks a thread than registers hold
+    shapes += [(SERVE_BATCH, d, dtype, (True, False), offset)
+               for d, offset in ((1001, 0), (4096, 1)) for dtype in
+               ("bfloat16", "float32")]
+    shapes += [(SERVE_BATCH, 20000, "bfloat16", (True,), 0)]
+    for rows, d, dtype, forms, *offset in shapes:
         td = getattr(torch, dtype)
-        x = (3 * torch.randn((rows, d), generator=gen, device=device)).to(td)
+        skip = offset[0] if offset else 0
+        x = (3 * torch.randn(rows * d + skip, generator=gen,
+                             device=device)).to(td)[skip:].view(rows, d)
         g = (1 + torch.randn(d, generator=gen, device=device)).to(td)
         for layer in forms:
             got = rn.rmsnorm(x, g, layer_form=layer)
@@ -997,26 +1009,38 @@ def phase_rmsnorm_kernel(torch, device):
             bitwise = bitwise and bool(torch.equal(got, want))
             cases += 1
     torch.cuda.synchronize()
+    require(bitwise, "rmsnorm: kernel not bit-equal to plain "
+                     f"(max abs err {worst:.3g})")
     times = {}
-    for tag, rows in (("decode", SERVE_BATCH), ("prefill", PREFILL_SEQ)):
-        x = torch.randn((rows, 4096), generator=gen,
+    for tag, rows, d in (("decode", SERVE_BATCH, 4096),
+                         ("decode_2560", SERVE_BATCH, 2560),
+                         ("decode_5120", SERVE_BATCH, 5120),
+                         ("prefill", PREFILL_SEQ, 4096)):
+        x = torch.randn((rows, d), generator=gen,
                         device=device).to(torch.bfloat16)
-        g = torch.ones(4096, dtype=torch.bfloat16, device=device)
+        g = torch.ones(d, dtype=torch.bfloat16, device=device)
         calls = {"ms": lambda: rn.rmsnorm(x, g, layer_form=True),
                  "plain_ms": lambda: rn.rmsnorm(x, g, layer_form=True,
                                                 impl="plain"),
-                 "library_ms": lambda: F.rms_norm(x, (4096,), g, 1e-5)}
+                 "library_ms": lambda: F.rms_norm(x, (d,), g, 1e-5)}
         t = {k: device_ms(torch, fn, 50) for k, fn in calls.items()}
         t["call_ms"] = call_ms(torch, calls["ms"], 200)
-        t.update(bound(2 * (2 * rows * 4096 + 4096), 4 * rows * 4096,
+        t["library_call_ms"] = call_ms(torch, calls["library_ms"], 200)
+        t.update(bound(2 * (2 * rows * d + d), 4 * rows * d,
                        FP32_OPS_PER_S))
+        t["bound_share"] = t["bound_ms"] / t["ms"]
         times[tag] = t
-    # the per-launch floor: the device time of a one-element torch op,
-    # taken beside the decode-shape times
+    # the per-launch floors: the device time and the host-included call
+    # time of a one-element torch op, taken beside the decode-shape times
     tiny = torch.zeros(8, device=device)
     floor = device_ms(torch, lambda: tiny.add_(1), 50)
+    floor_call = call_ms(torch, lambda: tiny.add_(1), 200)
+    variant = {"threads": rn.THREADS, "chunk_bytes": 16,
+               "paths": ["vector (x held in registers)", "strided"],
+               "pdl": False, "cluster": False}
     emit("rmsnorm_kernel", cases=cases, tol=LM_TOL, max_abs_err=worst,
-         bitwise_equal=bitwise, times=times, floor_ms=floor)
+         bitwise_equal=bitwise, variant=variant, times=times, floor_ms=floor,
+         floor_call_ms=floor_call)
     return worst, times, floor
 
 
@@ -1507,9 +1531,9 @@ def lm_phases(torch, device, counters):
          "launches_prefill_zamba2": zprefill["rmsnorm"],
          "max_abs_err": rms_err, "shape": [SERVE_BATCH, 4096],
          **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
-                                "bound_by", "library_ms")},
-         **{f"{k}_prefill": pre[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "library_ms")},
+                                "bound_by", "library_ms", "library_call_ms")},
+         **{f"{k}_prefill": pre[k] for k in ("ms", "plain_ms", "call_ms",
+                                             "bound_ms", "library_ms")},
          "floor_ms": rms_floor},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",

@@ -77,7 +77,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_waterfill.restype = _I
     lib.repro_wave_run.argtypes = [_P, _P]     # &ReproWaveArgs, stream
     lib.repro_wave_run.restype = _I
-    lib.repro_rmsnorm.argtypes = [_P, _P, _P, _LL, _I, _F, _F, _I, _I, _P]
+    lib.repro_rmsnorm.argtypes = [ctypes.c_char_p, _P]  # packed args
     lib.repro_rmsnorm.restype = _I
     lib.repro_flash_attention.argtypes = [_P] * 4 + [_I] * 6 + [_F] + \
         [_I] * 3 + [_P]

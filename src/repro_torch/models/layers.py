@@ -57,8 +57,10 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
     """The layer's RMSNorm: fp32 accumulation, ``x * rms`` rounded to
     ``x``'s type, times ``gamma`` in that type.  One launch of the
     ``rmsnorm`` kernel on the card (its ``layer_form``)."""
-    return _rmsnorm.rmsnorm(x.contiguous(), gamma.to(x.dtype).contiguous(),
-                            eps, layer_form=True, impl=impl)
+    if gamma.dtype != x.dtype:
+        gamma = gamma.to(x.dtype)
+    return _rmsnorm.rmsnorm(x.contiguous(), gamma.contiguous(), eps,
+                            layer_form=True, impl=impl)
 
 
 # ------------------------------------------------------------------- rope

@@ -3,8 +3,8 @@
 Same seed, same graphs and LUTs; the geometry builders give equal
 arrays; the ILP gives the same assignments; ``convert.from_reference``
 carries objects across faithfully.  Also: no module of ``repro_torch``,
-and not ``chip_smoke.py``, ``flash_probe.py`` or ``ssm_probe.py``,
-imports ``jax`` or anything of ``repro``; ``chip_smoke.py`` fails without
+and not ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py`` or
+``rmsnorm_probe.py``, imports ``jax`` or anything of ``repro``; ``chip_smoke.py`` fails without
 a GPU and outside the repository, the probes without a GPU.
 """
 
@@ -211,6 +211,7 @@ assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe
 import ssm_probe
+import rmsnorm_probe
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -221,7 +222,8 @@ assert not bad, bad
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
     (the LM path's and the sweep front end's among them),
-    ``chip_smoke.py``, ``flash_probe.py`` and ``ssm_probe.py`` loads no
+    ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py`` and
+    ``rmsnorm_probe.py`` loads no
     ``jax`` and no ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
@@ -276,6 +278,35 @@ def test_ssm_probe_variant_edits_match_the_kernel(monkeypatch, variant):
     text = ssm_probe.SOURCE.read_text()
     assert ssm_probe.variant_source(text, edits["shipped"]) == text
     assert ssm_probe.variant_source(text, edits[variant]) != text
+
+
+_RMSNORM_PROBE_VARIANTS = ("threads128", "threads512", "pdl")
+
+
+@pytest.mark.parametrize("variant", _RMSNORM_PROBE_VARIANTS)
+def test_rmsnorm_probe_variant_edits_match_the_kernel(monkeypatch, variant):
+    """Each of ``rmsnorm_probe.py``'s variants edits ``csrc/rmsnorm.cu``'s
+    text: every edit matches the source exactly once and changes it, and
+    the block size it declares is the one its edit sets."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import rmsnorm_probe
+
+    assert sorted(rmsnorm_probe.VARIANTS) == sorted(
+        ["shipped", *_RMSNORM_PROBE_VARIANTS])
+    text = rmsnorm_probe.SOURCE.read_text()
+    threads, edits = rmsnorm_probe.VARIANTS[variant]
+    assert rmsnorm_probe.variant_source(text, []) == text
+    edited = rmsnorm_probe.variant_source(text, edits)
+    assert edited != text
+    assert f"constexpr int kThreads = {threads};" in edited
+
+
+def test_rmsnorm_probe_fails_without_gpu():
+    """No CUDA device: a nonzero exit and no measurement line."""
+    proc = _run_smoke(ROOT, ROOT / "rmsnorm_probe.py")
+    assert proc.returncode != 0
+    assert '"probe"' not in proc.stdout
+    assert "no CUDA device" in proc.stderr
 
 
 def test_ssm_probe_fails_without_gpu():

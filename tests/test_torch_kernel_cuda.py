@@ -319,16 +319,17 @@ def test_wave_run_rejects_what_it_cannot_take(cuda_device):
 
 # ------------------------------------------------------------ LM kernels
 #: kernel vs plain: the rmsnorm kernel sums in the plain version's order
-#: (measured bit for bit on the card); flash attention's products run in
-#: another order than cuBLAS's, so fp32 agrees to rounding and bf16 to a
-#: flipped rounding of p or of the output
+#: (measured bit for bit on the card, and held so below); flash
+#: attention's products run in another order than cuBLAS's, so fp32
+#: agrees to rounding and bf16 to a flipped rounding of p or of the output
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.parametrize("layer_form", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 4096), (1000, 4096), (3, 5, 96),
-                                   (2, 300)])
+                                   (2, 300), (8, 2560), (8, 5120),
+                                   (4, 1001)])
 def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, layer_form):
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
     x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
@@ -341,6 +342,67 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, layer_form):
     want = rn.rmsnorm(x, g, layer_form=layer_form, impl="plain")
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,offset", [(4096, 1), (4096, 3), (20000, 0),
+                                      (8192, 0)])
+def test_rmsnorm_kernel_strided_rows(cuda_device, d, offset, dtype):
+    """Rows off the vector path (x off its 16-byte alignment, more chunks
+    a thread than registers hold) and the widest fp32 row on it: bit for
+    bit the plain version, in both forms."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + offset)
+    x = torch.randn(3 * d + offset, generator=gen, device=cuda_device)
+    x = x.to(dtype)[offset:].view(3, d)
+    g = (1 + torch.randn(d, generator=gen, device=cuda_device)).to(dtype)
+    for layer_form in (False, True):
+        got = rn.rmsnorm(x, g, layer_form=layer_form)
+        want = rn.rmsnorm(x, g, layer_form=layer_form, impl="plain")
+        assert torch.equal(got, want)
+
+
+def test_rmsnorm_on_a_side_stream(cuda_device):
+    """A launch on a non-default stream writes what the default stream's
+    does: the wrapper launches on PyTorch's current stream."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(8, 4096, generator=gen, device=cuda_device).bfloat16()
+    g = (1 + torch.randn(4096, generator=gen, device=cuda_device)).bfloat16()
+    want = rn.rmsnorm(x, g, layer_form=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = rn.rmsnorm(x, g, layer_form=True)
+        x.add_(1.0)          # ordered after the launch on the same stream
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_rmsnorm_captured_in_a_cuda_graph(cuda_device):
+    """One rmsnorm captured in a CUDA graph and replayed on new input
+    gives the eager result: the launch path neither syncs nor allocates
+    outside the graph's pool.  The Python wrapper runs (and counts) once,
+    at capture."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn(8, 4096, generator=gen, device=cuda_device).bfloat16()
+    g = (1 + torch.randn(4096, generator=gen, device=cuda_device)).bfloat16()
+    fresh = torch.randn(8, 4096, generator=gen, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                      # warm-up
+        rn.rmsnorm(x, g, layer_form=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rn.LAUNCHES["rmsnorm"]
+    with torch.cuda.graph(graph):
+        out = rn.rmsnorm(x, g, layer_form=True)
+    assert rn.LAUNCHES["rmsnorm"] == before + 1
+    x.copy_(fresh)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm"] == before + 1
+    assert torch.equal(out, rn.rmsnorm(fresh, g, layer_form=True))
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype,variant", [
@@ -406,8 +468,9 @@ def test_launch_failure_raises(cuda_device):
     lib = load_library().lib
     x = torch.randn(4, 64, device=cuda_device)
     stream = torch.cuda.current_stream().cuda_stream
-    code = lib.repro_rmsnorm(x.data_ptr(), x.data_ptr(), x.data_ptr(), 0, 64,
-                             1.0 / 64, 1e-5, 0, 1, stream)
+    code = lib.repro_rmsnorm(rn._ARGS.pack(x.data_ptr(), x.data_ptr(),
+                                           x.data_ptr(), 0, 64, 1.0 / 64,
+                                           1e-5, 0, 1), stream)
     assert code != 0
     with pytest.raises(RuntimeError, match="rmsnorm kernel launch failed"):
         check(code, "rmsnorm")

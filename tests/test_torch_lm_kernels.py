@@ -86,15 +86,58 @@ def test_rmsnorm_layer_form_matches_model_layer(shape, dtype):
         close(got, pallas_form, 1e-2)
 
 
+def _lane0_butterfly(v):
+    """A warp's xor butterfly (``v + shfl_xor(v, off)`` for off = 16 ... 1)
+    over 32 float32 lanes, written lane by lane; lane 0's value."""
+    v = list(v)
+    for off in (16, 8, 4, 2, 1):
+        v = [np.float32(v[i] + v[i ^ off]) for i in range(32)]
+    return v[0]
+
+
+def _kernel_sum_order(x, vec, threads=rn.THREADS):
+    """``(R, d)`` float32 -> ``(R, 1)``: the kernel's sum of squares as
+    explicit loops in float32.  Thread ``t`` walks its slots ``j`` (chunk
+    ``j * threads + t`` of ``vec`` elements) and each chunk's elements in
+    order, skipping those past ``d``; then each warp's butterfly, and one
+    more over the warps' partials (zeros past the last warp)."""
+    rows, d = x.shape
+    slots = -(-d // (vec * threads))
+    out = np.empty((rows, 1), np.float32)
+    for r in range(rows):
+        lanes = []
+        for t in range(threads):
+            acc = np.float32(0.0)
+            for j in range(slots):
+                for e in range(vec):
+                    i = (j * threads + t) * vec + e
+                    if i < d:
+                        acc = np.float32(acc + x[r, i] * x[r, i])
+            lanes.append(acc)
+        warps = [_lane0_butterfly(lanes[w:w + 32])
+                 for w in range(0, threads, 32)]
+        out[r, 0] = _lane0_butterfly(warps + [np.float32(0.0)]
+                                     * (32 - len(warps)))
+    return out
+
+
 def test_rmsnorm_sum_order_is_the_kernels():
-    """The plain sum of squares walks the kernel's order: thread-strided
-    slots, then two butterflies; it is a sum of the same terms."""
+    """The plain sum of squares walks the kernel's order (16-byte chunks of
+    4 fp32 or 8 bf16 elements, thread-strided slots, then two
+    butterflies): it equals the order written out as loops bit for bit,
+    and it is a sum of the same terms."""
     rng = np.random.default_rng(3)
-    for d in (1, 64, 255, 256, 4096, 5000):
-        x = torch.from_numpy(rng.standard_normal((3, d), dtype=np.float32))
-        got = rn._sum_squares(x)
-        want = (x.double() ** 2).sum(-1, keepdim=True)
-        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
+    for vec in (4, 8):
+        for d in (1, 8, 64, 255, 256, 300, 1001, 2560, 4096, 5000, 5120):
+            a = (rng.standard_normal((2, d))
+                 * rng.uniform(0.1, 10.0, (2, 1))).astype(np.float32)
+            x = torch.from_numpy(a)
+            got = rn._sum_squares(x, vec)
+            np.testing.assert_array_equal(got.numpy(),
+                                          _kernel_sum_order(a, vec))
+            want = (x.double() ** 2).sum(-1, keepdim=True)
+            torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                       atol=0)
 
 
 # ---------------------------------------------------------------- flash
