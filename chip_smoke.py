@@ -14,6 +14,12 @@ port's two paths:
   simulator's golden makespans; then the per-wave "step" path
   (``power_step`` and ``waterfill`` once a wave) on the same rows as the
   yardstick;
+* the sweep front end on those rows and on the mixed family
+  (``SweepEngine(executor="torch")``), and the streaming service
+  (``SweepService(executor="torch")``: a burst of the full-width rows in
+  full 256-row buckets, the same cells again from its result cache, a
+  Poisson stream whose deadline flushes pad buckets with phantom rows,
+  and the mixed family), each record held against the engine's;
 * the dense LM serving path at full width, llama3-8b with random bf16
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
@@ -542,9 +548,9 @@ def phase_profile(torch):
     results_s = []
     make_results = TorchBatchSimulator._results
 
-    def timed_results(self, out):
+    def timed_results(self, out, rows):
         t0 = time.perf_counter()
-        res = make_results(self, out)
+        res = make_results(self, out, rows)
         results_s.append(time.perf_counter() - t0)
         return res
 
@@ -868,7 +874,8 @@ def phase_sweep_mixed(torch, launches):
     executor="torch")`` (counts set to 0 just before it), every record
     on its planned backend, every torch record equal to the same sweep
     at ``impl="plain"`` on the card (0.0), and every exact-policy record
-    inside the event simulator's envelope.  Returns the launch counts."""
+    inside the event simulator's envelope.  Returns the launch counts,
+    the cells, the sweep and its ILP solves."""
     from repro_torch.core import SweepEngine, simulate
 
     cells = _mixed_cells()
@@ -933,6 +940,251 @@ def phase_sweep_mixed(torch, launches):
          max_makespan_diff_vs_event_s=worst_ms,
          max_energy_rel_vs_event=worst_e,
          profile=_bucket_profiles(sweep))
+    return got, cells, sweep, engine._assignments
+
+
+# ------------------------------------------------------ service phases
+#: Rows of a ``service_full_width`` bucket (its 3,072 cells fill 12),
+#: and the Poisson round's offered rate: a bucket takes ~0.13 s of
+#: arrivals to fill, longer than the 0.05 s deadline, so it flushes
+#: part-full with phantom rows.
+SERVICE_BUCKET_ROWS = 256
+SERVICE_RATE_HZ = 2000.0
+
+
+def _service_line(service, records, wall, n0, got, offered_hz):
+    """What every service round prints: rates, latency percentiles,
+    flushes, launches and the profile's totals over the round's own
+    buckets (those past the first ``n0``)."""
+    from repro_torch.serving import percentile
+
+    st = service.stats()
+    bks = service.profile.buckets[n0:]
+    lat = [r.latency_s for r in records]
+    rows = sum(b.rows for b in bks)
+    kernel_ms = sum(b.kernel_ms or 0.0 for b in bks)
+    return dict(
+        requests=len(records), wall_s=wall, offered_rate_hz=offered_hz,
+        achieved_rate_hz=len(records) / wall,
+        launched_rows=rows, rows_per_s=rows / wall,
+        latency_p50_s=percentile(lat, 50), latency_p99_s=percentile(lat, 99),
+        latency_max_s=max(lat), buckets=len(bks),
+        flushed_full=st.flushed_full, flushed_deadline=st.flushed_deadline,
+        phantom_rows=st.phantom_rows, cache_hits=st.cache_hits,
+        launches=got, compiles=service.profile.compiles,
+        kernel_ms=kernel_ms, device_busy_share=kernel_ms / (1e3 * wall),
+        **{f"{ph}_s": sum(getattr(b, f"{ph}_s") for b in bks)
+           for ph in ("pack", "dispatch", "run", "transfer", "results")})
+
+
+class _Arrivals:
+    """A service seen through its ``submit``, stamping every arrival
+    (``poisson_replay`` calls nothing else): the rate the stream really
+    offered, beside the rate it was asked to offer."""
+
+    def __init__(self, service):
+        self.service, self.times = service, []
+
+    def submit(self, scenario):
+        self.times.append(time.perf_counter())
+        return self.service.submit(scenario)
+
+    def rate_hz(self) -> float:
+        return (len(self.times) - 1) / (self.times[-1] - self.times[0])
+
+
+def phase_service_full_width(torch, launches, fw, smi):
+    """The streaming service at the main path's full width:
+    ``sweep_full_width``'s 3,072 scenarios through ``SweepService(
+    executor="torch", bucket_rows=256)``, each round with the counts set
+    to 0 just before it.  (a) a burst under a 5 s deadline: 12 buckets,
+    all flushed full, 12 wave_run launches, no phantom row; (b) the same
+    cells again: every record from the result cache, no launch; (c) a
+    fresh service under a 0.05 s deadline fed by ``poisson_replay`` at
+    2,000 requests/s: deadline flushes padded with phantom rows, one
+    wave_run launch a bucket.  Every record equals the ``full_width`` run
+    of its row (max abs diff 0.0), and no round builds the kernels.
+    Returns the launch counts of (a) and (c)."""
+    from repro_torch.core.sweep import Scenario
+    from repro_torch.serving import SweepService, poisson_replay
+
+    graph, specs, bounds, _ = _full_width_case()
+    specs = tuple(specs)
+    cells = [Scenario(name="is-C-64", graph=graph, specs=specs,
+                      bound_w=float(b), policy=p, latency_s=0.05)
+             for p in FULL_WIDTH_POLICIES for b in bounds]
+    want = [r for p in FULL_WIDTH_POLICIES for r in fw["results"][p]]
+    none = {"power_step": 0, "waterfill": 0, "wave_run": 0}
+
+    def held(records, what):
+        require(all(r.ok for r in records),
+                f"{what}: a request failed: "
+                f"{next((r.error for r in records if not r.ok), None)}")
+        _, d = _compare_results([r.result for r in records], want, what)
+        require(d == 0.0, f"{what}: max abs diff {d} vs full_width")
+        return d
+
+    def zero():
+        for key in launches:
+            launches[key] = 0
+
+    rows = SERVICE_BUCKET_ROWS
+    full = len(cells) // rows
+    require(len(cells) % rows == 0, "service burst: cells fill no buckets")
+    out = {}
+    with SweepService(executor="torch", bucket_rows=rows,
+                      flush_deadline_s=5.0) as service:
+        zero()
+        t0 = time.perf_counter()
+        tickets = service.submit_many(cells)
+        submit_s = time.perf_counter() - t0
+        records = [t.result(timeout=600) for t in tickets]
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+        st = service.stats()
+        require(st.buckets == full and st.flushed_full == full
+                and st.flushed_deadline == 0 and st.phantom_rows == 0,
+                f"service burst: {st}; {full} full buckets expected")
+        require(got == dict(none, wave_run=full),
+                f"service burst: launches {got}; {full} wave_run "
+                f"expected")
+        require(all(r.backend == "torch" for r in records)
+                and all(b.path == "cuda" and b.rows == rows
+                        for b in service.profile.buckets),
+                "service burst: a record or bucket left the wave_run path")
+        require(service.profile.compiles == 0,
+                "service burst: a dispatch built the kernels")
+        d = held(records, "service burst")
+        out["burst"] = got
+        emit("service_full_width", round="burst", nvidia_smi=smi,
+             max_abs_diff_vs_full_width=d, submit_s=submit_s,
+             **_service_line(service, records, wall, 0, got,
+                             len(cells) / submit_s))
+
+        n0 = len(service.profile.buckets)
+        zero()
+        t0 = time.perf_counter()
+        tickets = service.submit_many(cells)
+        submit_s = time.perf_counter() - t0
+        again = [t.result(timeout=60) for t in tickets]
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+        require(all(r.backend == "cache" and r.cached for r in again),
+                "service resubmit: a record missed the result cache")
+        require(got == none and len(service.profile.buckets) == n0,
+                f"service resubmit: launches {got}; none expected")
+        d = held(again, "service resubmit")
+        emit("service_full_width", round="resubmit", nvidia_smi=smi,
+             max_abs_diff_vs_full_width=d, submit_s=submit_s,
+             **_service_line(service, again, wall, n0, got,
+                             len(cells) / submit_s))
+
+    with SweepService(executor="torch", bucket_rows=rows,
+                      flush_deadline_s=0.05) as service:
+        zero()
+        arrivals = _Arrivals(service)
+        report = poisson_replay(arrivals, cells, rate_hz=SERVICE_RATE_HZ,
+                                seed=0, timeout_s=600)
+        got = dict(launches)
+        prof = service.profile
+        st = service.stats()
+        require(got == dict(none, wave_run=len(prof.buckets))
+                and all(b.path == "cuda" for b in prof.buckets),
+                f"service poisson: launches {got} for "
+                f"{len(prof.buckets)} torch buckets")
+        require(st.phantom_rows > 0 and st.flushed_deadline > 0,
+                f"service poisson: {st}; deadline flushes with phantom "
+                f"rows expected")
+        require(prof.compiles == 0 and prof.recompiles == 0,
+                "service poisson: a dispatch built the kernels")
+        d = held(report.records, "service poisson")
+        out["poisson"] = got
+        emit("service_full_width", round="poisson", nvidia_smi=smi,
+             max_abs_diff_vs_full_width=d,
+             phantom_share=st.phantom_rows / (st.phantom_rows + len(cells)),
+             arrival_rate_hz=arrivals.rate_hz(),
+             arrival_s=arrivals.times[-1] - arrivals.times[0],
+             **_service_line(service, report.records, report.wall_s, 0,
+                             got, report.offered_rate_hz))
+    return out
+
+
+def phase_service_mixed(torch, launches, cells, sweep, assignments):
+    """``sweep_mixed``'s 129 cells through ``SweepService(executor=
+    "torch")`` (counts set to 0 just before it, the sweep's ILP solves
+    shared): every record on the backend, with the fallback reason, of
+    ``SweepEngine(executor="torch")``'s record of the same cell; torch
+    records equal to it (0.0; ``learned``'s within TOL, its lane sums
+    rounding with the lane padding), vector and event records inside the event
+    simulator's envelope of it (2 dt, 1% energy); one wave_run launch a
+    ``"cuda"`` bucket, ``learned`` on the ``"step"`` path.  Returns the
+    launch counts."""
+    from repro_torch.serving import SweepService
+
+    for key in launches:
+        launches[key] = 0
+    with SweepService(executor="torch", flush_deadline_s=0.05) as service:
+        service._assignments = assignments      # the same ILP caps
+        t0 = time.perf_counter()
+        records = [t.result(timeout=600)
+                   for t in service.submit_many(cells)]
+        wall = time.perf_counter() - t0
+    got = dict(launches)
+    prof = service.profile
+    require(all(r.ok for r in records),
+            f"service_mixed: a request failed: "
+            f"{next((r.error for r in records if not r.ok), None)}")
+    torch_pairs, learned = [], []
+    worst_ms = worst_e = 0.0
+    for rec, off in zip(records, sweep.records):
+        s = rec.scenario
+        require((rec.backend, rec.fallback_reason)
+                == (off.backend, off.fallback_reason),
+                f"service_mixed {s.name}/{s.policy_key}: "
+                f"{rec.backend}/{rec.fallback_reason}, the sweep's "
+                f"{off.backend}/{off.fallback_reason}")
+        if rec.backend == "torch":
+            (learned if s.policy == "learned" else torch_pairs).append(
+                (rec.result, off.result))
+            continue
+        d_ms = abs(rec.result.makespan - off.result.makespan)
+        d_e = abs(rec.result.energy_j - off.result.energy_j) \
+            / off.result.energy_j
+        require(d_ms <= 2 * 0.05 and d_e <= 0.01,
+                f"service_mixed {s.name}/{s.policy_key}: makespan "
+                f"{rec.result.makespan} vs {off.result.makespan}, energy "
+                f"{rec.result.energy_j} vs {off.result.energy_j}")
+        worst_ms, worst_e = max(worst_ms, d_ms), max(worst_e, d_e)
+    _, abs_diff = _compare_results([a for a, _ in torch_pairs],
+                                   [b for _, b in torch_pairs],
+                                   "service_mixed vs sweep_mixed")
+    require(abs_diff == 0.0, f"service_mixed: max abs diff {abs_diff} vs "
+                             f"the sweep's records")
+    # learned's MLP sums its lanes in torch's own order, which depends on
+    # the lane count: a bucket the sweep ran in the shared layout (exact
+    # N) and the service padded (pow2 N) round apart, within TOL
+    learned_rel, learned_abs = _compare_results(
+        [a for a, _ in learned], [b for _, b in learned],
+        "service_mixed learned vs sweep_mixed")
+    n_cuda = sum(b.path == "cuda" for b in prof.buckets)
+    require(got["wave_run"] == n_cuda and got["power_step"] > 0
+            and got["waterfill"] == 0 and prof.compiles == 0,
+            f"service_mixed: launches {got}, {n_cuda} wave_run buckets, "
+            f"{prof.compiles} builds")
+    st = service.stats()
+    emit("service_mixed", scenarios=len(cells), wall_s=wall, launches=got,
+         backends={b: sum(r.backend == b for r in records)
+                   for b in ("torch", "vector", "event")},
+         buckets=st.buckets, step_buckets=sum(b.path == "step"
+                                              for b in prof.buckets),
+         phantom_rows=st.phantom_rows, fallbacks=st.fallbacks,
+         latency_p50_s=st.latency_p50_s, latency_p99_s=st.latency_p99_s,
+         max_abs_diff_vs_sweep=abs_diff, torch_records=len(torch_pairs),
+         learned_records=len(learned),
+         learned_max_rel_vs_sweep=learned_rel,
+         learned_max_abs_diff_vs_sweep=learned_abs,
+         max_makespan_diff_vs_sweep_s=worst_ms,
+         max_energy_rel_vs_sweep=worst_e)
     return got
 
 
@@ -1586,8 +1838,12 @@ def sim_phases(torch, device, counters, smi):
     padded_diff = phase_padded(torch, ps.LAUNCHES)
     ilp_diff = phase_ilp(torch, ps.LAUNCHES)
     sweep_fw = phase_sweep_full_width(torch, ps.LAUNCHES, fw, smi)
+    service_fw = phase_service_full_width(torch, ps.LAUNCHES, fw, smi)
     del fw["results"]
-    sweep_mixed = phase_sweep_mixed(torch, ps.LAUNCHES)
+    sweep_mixed, cells, sweep, solved = phase_sweep_mixed(torch,
+                                                          ps.LAUNCHES)
+    service_mixed = phase_service_mixed(torch, ps.LAUNCHES, cells, sweep,
+                                        solved)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
     per_wave = ("the per-wave entry points run on the engine's \"step\" "
@@ -1600,6 +1856,9 @@ def sim_phases(torch, device, counters, smi):
          "launches": main_launches["wave_run"],
          "launches_sweep_full_width": sweep_fw["wave_run"],
          "launches_sweep_mixed": sweep_mixed["wave_run"],
+         "launches_service_full_width": service_fw["burst"]["wave_run"],
+         "launches_service_poisson": service_fw["poisson"]["wave_run"],
+         "launches_service_mixed": service_mixed["wave_run"],
          "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
          "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
          "ms_heuristic": fw["ms_heuristic"],
@@ -1617,8 +1876,11 @@ def sim_phases(torch, device, counters, smi):
          "launches": step_launches["power_step"],
          "launches_main": main_launches["power_step"],
          "launches_sweep_mixed": sweep_mixed["power_step"],
-         "note": per_wave + "; launches_sweep_mixed the learned "
-                            "policy's, in phase sweep_mixed",
+         "launches_service_mixed": service_mixed["power_step"],
+         "note": per_wave + "; launches_sweep_mixed and "
+                            "launches_service_mixed the learned "
+                            "policy's, in phases sweep_mixed and "
+                            "service_mixed",
          "max_abs_err": worst["power_step"][0],
          "ms": times["power_step_ms"],
          "plain_ms": times["power_step_plain_ms"],

@@ -150,6 +150,9 @@ class PendingBatch:
     events: Optional[Tuple] = None         # (start, end) CUDA events
     waves: int = 0                         # lockstep iterations
     syncs: int = 0                         # lockstep liveness checks
+    #: the pinned host buffers the uploads were copied from, kept alive
+    #: until :meth:`TorchBatchSimulator.fetch` returns
+    staged: Tuple[torch.Tensor, ...] = ()
 
 
 class RunStats(NamedTuple):
@@ -361,6 +364,7 @@ class TorchBatchSimulator:
             self.policy = get_torch_policy(policy, **policy_kwargs)
         self.impl = resolve_impl(impl, self.device, self.policy)
         self.stats: Optional[RunStats] = None
+        self._staged: List[torch.Tensor] = []
 
     @property
     def n_rows(self) -> int:
@@ -381,7 +385,9 @@ class TorchBatchSimulator:
         t = t.contiguous()
         if self.device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        pinned = t.pin_memory()
+        self._staged.append(pinned)
+        return pinned.to(self.device, non_blocking=True)
 
     def _ctx(self) -> Ctx:
         a = self.arrays
@@ -533,11 +539,17 @@ class TorchBatchSimulator:
         ``check_every`` iterations, so their dispatch runs (nearly) to
         completion.  ``profile.compiled`` is true when this dispatch
         built the kernel library (the per-wave paths build it at their
-        first launch)."""
-        from repro_torch.kernels._build import load_library
+        first launch).
+
+        Everything here works from the engine's own ``device``: the
+        launches, the events and the stream they are recorded on, never
+        the calling thread's current device, so a dispatcher thread and
+        a collector thread may each take one side of a batch."""
+        from repro_torch.kernels._build import claim_build, library_loaded
 
         prof = BucketProfile(rows=self.n_rows, path=self.impl)
         t0 = time.perf_counter()
+        self._staged = []
         pol = {k: self._tensor(v, torch.bool if np.asarray(v).dtype == bool
                                else FLOAT)
                for k, v in self.policy.init_state(self).items()}
@@ -554,13 +566,14 @@ class TorchBatchSimulator:
                           self.policy.name)
         t1 = time.perf_counter()
         prof.pack_s = t1 - t0
-        unbuilt = (self.impl != "plain"
-                   and load_library.cache_info().currsize == 0)
+        unbuilt = self.impl != "plain" and not library_loaded()
         pending = PendingBatch(st=st, profile=prof)
+        stream = None
         if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
             pending.events = tuple(torch.cuda.Event(enable_timing=True)
                                    for _ in range(2))
-            pending.events[0].record()
+            pending.events[0].record(stream)
         if self.impl == "cuda":
             pending.iters = wave_run_cuda(
                 ctx, st, pol, sched_t, sched_w, mode=kernel_mode(self.policy),
@@ -569,10 +582,13 @@ class TorchBatchSimulator:
             pending.waves, pending.syncs = self._lockstep(ctx, st, pol,
                                                           sched_t, sched_w)
         if pending.events is not None:
-            pending.events[1].record()
+            pending.events[1].record(stream)
+        pending.staged, self._staged = tuple(self._staged), []
         prof.dispatch_s = time.perf_counter() - t1
-        prof.compiled = unbuilt and load_library().build_s > 0
-        prof.compile_s = load_library().build_s if prof.compiled else 0.0
+        # the one dispatch that claims the build reports it, even when
+        # several threads were waiting on it
+        prof.compile_s = claim_build() if unbuilt else 0.0
+        prof.compiled = prof.compile_s > 0
         if obs_trace.enabled():
             args = {"rows": self.n_rows, "path": self.impl}
             obs_trace.complete("pack", t0, prof.pack_s, cat="engine",
@@ -583,12 +599,15 @@ class TorchBatchSimulator:
                                args=dict(args, compiled=prof.compiled))
         return pending
 
-    def fetch(self, pending: PendingBatch) -> List[SimResult]:
+    def fetch(self, pending: PendingBatch,
+              rows: Optional[int] = None) -> List[SimResult]:
         """Wait for a dispatched batch and build its results.
 
         ``run_s`` is the wait left at fetch time; then one device-to-host
         copy brings back every state field (``transfer_s``), and the
-        results are built on the host (``results_s``).  On the card the
+        results are built on the host (``results_s``) for the first
+        ``rows`` rows (all when ``None``: the streaming service's phantom
+        rows past its requests are checked, not built).  On the card the
         copy runs on a stream of its own that waits for this batch's end
         event only: on the launch stream it would also wait for every
         batch dispatched after this one."""
@@ -615,8 +634,9 @@ class TorchBatchSimulator:
         self.stats = RunStats(path=self.impl, waves=waves,
                               row_waves=int(out["steps"].sum()),
                               host_syncs=syncs + 1, kernel_ms=prof.kernel_ms)
+        pending.staged = ()
         self._check_failures(out)
-        results = self._results(out)
+        results = self._results(out, self.n_rows if rows is None else rows)
         prof.results_s = time.perf_counter() - t2
         if obs_trace.enabled():
             args = {"rows": self.n_rows, "path": self.impl}
@@ -663,10 +683,11 @@ class TorchBatchSimulator:
             raise RuntimeError(f"torch batch simulator exceeded max steps "
                                f"({self.max_steps}); livelock?")
 
-    def _results(self, out: Dict[str, np.ndarray]) -> List[SimResult]:
+    def _results(self, out: Dict[str, np.ndarray],
+                 rows: int) -> List[SimResult]:
         name = self.policy.name
         results: List[SimResult] = []
-        for row in range(self.n_rows):
+        for row in range(rows):
             job_ids = self.row_job_ids[row]
             makespan = float(out["makespan"][row])
             starts = {jid: float(out["start_t"][row, k])

@@ -87,6 +87,27 @@ class SweepProfile:
         """Dispatches that found the library built."""
         return sum(1 for b in self.buckets if not b.compiled)
 
+    @property
+    def recompiles(self) -> int:
+        """Builds in steady state: dispatches that built the kernels for
+        a cache key this profile had *already* dispatched earlier.  The
+        library is built at most once a process, so a long-lived
+        service's smoke run asserts this is zero."""
+        seen: set = set()
+        n = 0
+        for b in self.buckets:
+            if b.compiled and b.cache_key in seen:
+                n += 1
+            seen.add(b.cache_key)
+        return n
+
+    def compiles_after(self, warmup_buckets: int) -> int:
+        """Dispatches beyond the first ``warmup_buckets`` that still
+        built the kernels — the service's "no kernel build after
+        warm-up" acceptance gate."""
+        return sum(1 for b in self.buckets[warmup_buckets:]
+                   if b.compiled)
+
     def total(self, phase: str) -> float:
         """Sum one phase (``pack``/``dispatch``/``compile``/``run``/
         ``transfer``/``results``) over every bucket, in seconds."""

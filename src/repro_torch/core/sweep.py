@@ -371,7 +371,25 @@ def bucket_key(backend: str, s: Scenario,
             (next_pow2(n), next_pow2(j)))
 
 
-def scenario_cache_key(s: Scenario) -> Optional[tuple]:
+def _graph_text(g: JobDependencyGraph,
+                texts: Optional[Dict[int, tuple]]) -> str:
+    """``g.to_text()``, memoized in ``texts`` per graph object and job
+    count: jobs are frozen and a graph only grows, so a graph that was
+    added to since is read again.  The entry pins the graph, so a
+    recycled ``id`` cannot alias another graph."""
+    if texts is None:
+        return g.to_text()
+    hit = texts.get(id(g))
+    if hit is not None and hit[0] is g and hit[1] == len(g):
+        return hit[2]
+    text = g.to_text()
+    texts[id(g)] = (g, len(g), text)
+    return text
+
+
+def scenario_cache_key(s: Scenario,
+                       texts: Optional[Dict[int, tuple]] = None
+                       ) -> Optional[tuple]:
     """Content-based identity of one scenario's *result*, or ``None``
     when the scenario is uncacheable (stateful policy instances).
 
@@ -379,11 +397,15 @@ def scenario_cache_key(s: Scenario) -> Optional[tuple]:
     and deliberately ignores graph content — this key answers "is this
     the same simulation": the canonical graph text, the cluster
     content signature, the exact bound/schedule, and the full policy
-    configuration (what a result cache is keyed on).
+    configuration (what a result cache is keyed on).  ``texts`` memoizes
+    the graph text across calls (a long-lived service's many scenarios
+    share a few graphs, and a 64-node all-to-all graph's text takes
+    milliseconds to write).
     """
     if not isinstance(s.policy, str):
         return None
-    return ("scenario", s.graph.to_text(), specs_signature(s.specs),
+    return ("scenario", _graph_text(s.graph, texts),
+            specs_signature(s.specs),
             round(s.bound_w, 12), s.policy,
             tuple(sorted((k, repr(v))
                          for k, v in s.policy_kwargs.items())),

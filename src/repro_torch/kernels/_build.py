@@ -14,15 +14,15 @@ versions run.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu",
@@ -99,9 +99,20 @@ def _compile(nvcc: str, name: str, obj: Path):
     return proc.stdout + proc.stderr, proc.returncode, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library, once per process."""
+def _link(nvcc: str, objs, out: Path):
+    """The objects to one shared library: (output, return code)."""
+    proc = subprocess.run([nvcc, "-shared", "-o", str(out), *map(str, objs)],
+                          capture_output=True, text=True)
+    return proc.stdout + proc.stderr, proc.returncode
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return lib
+
+
+def _load() -> KernelLibrary:
     path = BUILD_DIR / f"libreprotorch-{_digest()}.so"
     build_s, log, source_s = 0.0, "", {}
     if not path.is_file():
@@ -120,20 +131,55 @@ def load_library() -> KernelLibrary:
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
+        link_log, rc = _link(nvcc, objs, tmp)
         build_s = time.perf_counter() - t0
-        log += proc.stdout + proc.stderr
+        log += link_log
         for obj in objs:
             obj.unlink(missing_ok=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{log}")
         os.replace(tmp, path)        # atomic: concurrent builders agree
-    lib = ctypes.CDLL(str(path))
-    _declare(lib)
-    return KernelLibrary(lib=lib, path=path, build_s=build_s, log=log,
-                         source_s=source_s)
+    return KernelLibrary(lib=_open(path), path=path, build_s=build_s,
+                         log=log, source_s=source_s)
+
+
+#: The loaded library (None until the first :func:`load_library`), and
+#: whether a caller has claimed its build (:func:`claim_build`).  Both
+#: change only under ``_LOCK``: the sweep service launches from its own
+#: threads, and two first calls must not both build.
+_LOCK = threading.Lock()
+_LIBRARY: Optional[KernelLibrary] = None
+_CLAIMED = False
+
+
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process,
+    whichever thread calls first (the others wait for that build)."""
+    global _LIBRARY
+    lib = _LIBRARY
+    if lib is None:
+        with _LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = _load()
+            lib = _LIBRARY
+    return lib
+
+
+def library_loaded() -> bool:
+    """True once :func:`load_library` has returned in this process."""
+    return _LIBRARY is not None
+
+
+def claim_build() -> float:
+    """The nvcc seconds of this process's build to the first caller that
+    asks after it, 0.0 to every other caller (and when the library was
+    loaded as built): so exactly one dispatch reports the build."""
+    global _CLAIMED
+    with _LOCK:
+        if _LIBRARY is None or _CLAIMED:
+            return 0.0
+        _CLAIMED = True
+        return _LIBRARY.build_s
 
 
 def check(code: int, what: str) -> None:

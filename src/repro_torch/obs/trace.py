@@ -1,15 +1,15 @@
 """Span tracing in Chrome ``trace_event`` format.
 
-The port's copy of the reference's ``repro.obs.trace``, cut to the
-tracer and the span calls the sweep executor and the engine make (spans
-and instants; counters and async spans come with the streaming
-service).  Spans, instants and already-measured complete events are
+The port's copy of the reference's ``repro.obs.trace``, without its
+environment activation (``REPRO_TRACE``).  Spans, instants, counters,
+async spans (one service request's submit→resolve life, begun and ended
+on different threads) and already-measured complete events are
 collected into one JSON array that Chrome's ``about:tracing`` and
 Perfetto open directly.
 
 * **Near-zero cost when disabled.**  Instrumentation sites call the
-  module-level helpers (:func:`span`, :func:`instant`, :func:`complete`);
-  each starts with a single ``if _TRACER is None`` check and returns a
+  module-level helpers (:func:`span`, :func:`instant`, :func:`counter`,
+  :func:`complete`, :func:`async_begin`, :func:`async_end`); each starts with a single ``if _TRACER is None`` check and returns a
   shared singleton — no allocation, no string formatting, no lock.
 * **Thread-safe when enabled.**  The tracer appends under one lock.
 * **Tracks.**  String ``track``/``lane`` names map to stable integer
@@ -147,6 +147,12 @@ class Tracer:
                 "args": {"name": name}})
         return tid
 
+    def track_ids(self) -> Dict[str, int]:
+        """Snapshot of the ``track name -> pid`` map (tests assert the
+        merged layers stay on disjoint ids)."""
+        with self._lock:
+            return dict(self._pids)
+
     # ------------------------------------------------------------- emit
     def _emit(self, ph: str, name: str, ts_us: float, cat: str,
               track: Optional[str], lane: Optional[str],
@@ -201,11 +207,46 @@ class Tracer:
         self._emit("i", name, self._ts_us(ts, None), cat, track, lane,
                    args, s="t")
 
+    def counter(self, name: str, values: Dict[str, float],
+                cat: str = "", track: Optional[str] = None,
+                ts: Optional[float] = None) -> None:
+        """One sample of a counter track (``C``): ``values`` maps
+        series name to value; viewers render multiple series of one
+        counter as a stacked area (the power-timeline view)."""
+        self._emit("C", name, self._ts_us(ts, None), cat, track, "",
+                   {k: float(v) for k, v in values.items()})
+
+    def async_begin(self, name: str, aid: str, cat: str = "",
+                    track: Optional[str] = None,
+                    ts: Optional[float] = None,
+                    args: Optional[dict] = None) -> None:
+        """Open an async span (``b``) — spans that start and end on
+        different threads, e.g. one service request's submit→resolve
+        life.  ``aid`` correlates the matching :meth:`async_end`."""
+        self._emit("b", name, self._ts_us(ts, None), cat, track, "",
+                   args, id=str(aid))
+
+    def async_end(self, name: str, aid: str, cat: str = "",
+                  track: Optional[str] = None, ts: Optional[float] = None,
+                  args: Optional[dict] = None) -> None:
+        """Close the async span opened under ``aid``."""
+        self._emit("e", name, self._ts_us(ts, None), cat, track, "",
+                   args, id=str(aid))
+
     # ------------------------------------------------------------ export
     def events(self) -> List[dict]:
         """A snapshot copy of the collected events."""
         with self._lock:
             return list(self._events)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def __bool__(self) -> bool:
+        """An installed tracer is truthy even before its first event
+        (``__len__`` would otherwise make an empty tracer falsy)."""
+        return True
 
     def to_json(self) -> str:
         """The Chrome JSON array format (one line per event)."""
@@ -280,3 +321,30 @@ def instant(name: str, cat: str = "", track: Optional[str] = None,
     if t is not None:
         t.instant(name, cat=cat, track=track, lane=lane, ts=ts,
                   args=args)
+
+
+def counter(name: str, values: Dict[str, float], cat: str = "",
+            track: Optional[str] = None,
+            ts: Optional[float] = None) -> None:
+    """Module-level :meth:`Tracer.counter`; no-op when disabled."""
+    t = _TRACER
+    if t is not None:
+        t.counter(name, values, cat=cat, track=track, ts=ts)
+
+
+def async_begin(name: str, aid: str, cat: str = "",
+                track: Optional[str] = None, ts: Optional[float] = None,
+                args: Optional[dict] = None) -> None:
+    """Module-level :meth:`Tracer.async_begin`; no-op when disabled."""
+    t = _TRACER
+    if t is not None:
+        t.async_begin(name, aid, cat=cat, track=track, ts=ts, args=args)
+
+
+def async_end(name: str, aid: str, cat: str = "",
+              track: Optional[str] = None, ts: Optional[float] = None,
+              args: Optional[dict] = None) -> None:
+    """Module-level :meth:`Tracer.async_end`; no-op when disabled."""
+    t = _TRACER
+    if t is not None:
+        t.async_end(name, aid, cat=cat, track=track, ts=ts, args=args)

@@ -206,7 +206,9 @@ named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
          "repro_torch.policies.online_heuristic",
          "repro_torch.policies.oracle", "repro_torch.policies.countdown",
          "repro_torch.policies.vector", "repro_torch.policies.learned",
-         "repro_torch.obs.trace", "repro_torch.backends.profile"}}
+         "repro_torch.obs.trace", "repro_torch.backends.profile",
+         "repro_torch.obs.metrics", "repro_torch.serving.service",
+         "repro_torch.serving.stream"}}
 assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe

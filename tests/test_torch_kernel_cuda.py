@@ -702,3 +702,51 @@ def test_sweep_on_the_card_matches_plain_and_plans_wide_rows_to_vector(
     for a, b in zip(sweep.records, plain.records):
         assert a.backend == b.backend and a.bucket == b.bucket
         _exact([a.result], [b.result])
+
+
+def test_service_on_the_card_matches_the_sweep_engine(cuda_device):
+    """``SweepService(executor="torch")`` on the card (device None):
+    every record, dispatched on the service's thread and fetched on its
+    collector, equals ``SweepEngine(executor="torch")``'s record of the
+    same cell on the card (``learned`` at rel 1e-5, vector records at
+    1e-12), with the same backend and fallback reason; one wave_run
+    launch a ``"cuda"`` bucket, nothing built after the kernels exist."""
+    from repro_torch.core import (Scenario, SweepEngine, ep_like,
+                                  mixed_family)
+    from repro_torch.serving import SweepService
+
+    cells = mixed_family(seed=0, bound_fracs=(0.4, 0.8),
+                         policies=("equal-share", "oracle", "heuristic",
+                                   "learned", "countdown")).scenarios()
+    cells.append(Scenario("ep300", ep_like(300, "A", seed=1),
+                          tuple(homogeneous_cluster(300)), 1200.0,
+                          "equal-share"))
+    load_library()
+    offline = SweepEngine(executor="torch").run(cells)
+    before = dict(ps.LAUNCHES)
+    with SweepService(executor="torch", flush_deadline_s=0.05,
+                      bucket_rows=16) as service:
+        records = [t.result(120) for t in service.submit_many(cells)]
+    got = {k: ps.LAUNCHES[k] - before[k] for k in before}
+    assert not offline.failures and all(r.ok for r in records)
+    for rec, off in zip(records, offline.records):
+        assert (rec.backend, rec.fallback_reason) == \
+            (off.backend, off.fallback_reason)
+        # learned's MLP (torch) and the float64 vector backend (numpy)
+        # sum lanes in an order that depends on the lane padding: the
+        # service pads every bucket, the sweep runs one-graph buckets at
+        # their exact N
+        rel = {"learned": 1e-5}.get(rec.scenario.policy,
+                                    1e-12 if rec.backend == "vector" else 0)
+        if rel:
+            for f in ("makespan", "energy_j", "peak_power_w"):
+                assert getattr(rec.result, f) == pytest.approx(
+                    getattr(off.result, f), rel=rel)
+        else:
+            _exact([rec.result], [off.result])
+    prof = service.profile
+    assert prof.compiles == 0 and prof.recompiles == 0
+    n_cuda = sum(b.path == "cuda" for b in prof.buckets)
+    assert got["wave_run"] == n_cuda > 0 and got["power_step"] > 0
+    assert records[-1].fallback_reason == "lanes(300>256)"
+    assert {b.rows for b in prof.buckets} == {16}
