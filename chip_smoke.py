@@ -20,6 +20,12 @@ port's two paths:
   full 256-row buckets, the same cells again from its result cache, a
   Poisson stream whose deadline flushes pad buckets with phantom rows,
   and the mixed family), each record held against the engine's;
+* recorded MPI traces (``repro_torch.traces``): four 64-rank recordings
+  written as JSONL, loaded, replay-validated and held against the
+  recorded graphs, then their 384-cell ``ScenarioFamily.from_corpus``
+  family through the sweep, the service and the serve CLI's
+  ``--trace-corpus`` mode (once with ``REPRO_TRACE`` set), 12 cells
+  against ``impl="plain"`` and the event simulator;
 * the dense LM serving path at full width, llama3-8b with random bf16
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
@@ -1188,6 +1194,400 @@ def phase_service_mixed(torch, launches, cells, sweep, assignments):
     return got
 
 
+# ------------------------------------------------------ trace corpus
+#: The ``trace_corpus`` phase's recordings: (workload, class) on 64
+#: heterogeneous ranks from seed 0 — the NPB IS / CG / EP class-C
+#: analogues and one MoE step, written as JSONL and read back.
+TRACE_MEMBERS = (("npb-is", "C"), ("npb-cg", "C"), ("npb-ep", "C"),
+                 ("moe", "A"))
+TRACE_RANKS = 64
+TRACE_FRACS = 32
+TRACE_BUCKET_ROWS = 64
+#: Reconstructed vs recorded work (``graphs_match``'s rtol, absolute
+#: below 1 unit): the file round trip rounds each stamp to 1 ns.
+TRACE_WORK_RTOL = 1e-8
+
+
+#: The picked cells' split over the plain workers (processes on the
+#: card, run side by side), as (member, policy): the plain path issues
+#: each wave's ops from the host, ~3.4 ms a heuristic tick wave, so the
+#: heuristic's two long tick chains (IS-C 88 s, EP-C 85 s at 0.95) run
+#: alone; npb-cg's cells took 30-48 s, the rest under 7 s (one worker,
+#: H100 80GB HBM3).
+TRACE_PLAIN_GROUPS = (
+    (("npb-is-C", "heuristic"),),
+    (("npb-ep-C", "heuristic"),),
+    (("npb-cg-C", "heuristic"), ("moe-A", "equal-share"),
+     ("moe-A", "oracle"), ("moe-A", "heuristic")),
+    (("npb-cg-C", "equal-share"), ("npb-cg-C", "oracle"),
+     ("npb-is-C", "equal-share"), ("npb-is-C", "oracle"),
+     ("npb-ep-C", "equal-share"), ("npb-ep-C", "oracle")),
+)
+
+
+def _trace_family(corpus_dir):
+    """The recorded corpus as a family: 32 bound fractions evenly in
+    [0.05, 0.95] x equal-share / oracle / heuristic (384 cells)."""
+    import numpy as np
+
+    from repro_torch.core import ScenarioFamily
+
+    fracs = tuple(float(f) for f in np.linspace(0.05, 0.95, TRACE_FRACS))
+    return ScenarioFamily.from_corpus(corpus_dir, bound_fracs=fracs,
+                                      policies=FULL_WIDTH_POLICIES)
+
+
+def _trace_picks(n_members):
+    """Indices into the family's cells of the 12 held against the plain
+    path: one bound fraction a member and policy — equal-share and
+    oracle spread over the range, the heuristic at 0.95 (its fewest tick
+    waves: the plain path runs a wave's ops from the host)."""
+    picks, top = [], TRACE_FRACS - 1
+    for m in range(n_members):
+        spread = m * top // max(1, n_members - 1)
+        for p, policy in enumerate(FULL_WIDTH_POLICIES):
+            f = {"equal-share": spread, "oracle": top - spread,
+                 "heuristic": top}[policy]
+            picks.append((m * TRACE_FRACS + f) * len(FULL_WIDTH_POLICIES)
+                         + p)
+    return picks
+
+
+def _trace_worker(queue, what, corpus_dir, group) -> None:
+    """Worker process of ``trace_corpus``: the picked cells of
+    ``group`` (``(member, policy)`` pairs) through the sweep at
+    ``impl="plain"`` on the card (``what="plain"``), or the event
+    simulator on the host (``what="event"``).  Sends back ``{pick
+    position: (seconds, ...)}``, or the traceback of a failure."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.core import SweepEngine, simulate
+
+        cells = _trace_family(corpus_dir).scenarios()
+        picked = [(k, cells[i]) for k, i in
+                  enumerate(_trace_picks(len(TRACE_MEMBERS)))
+                  if (cells[i].tags["member"], cells[i].policy) in group]
+        out = {}
+        if what == "plain":
+            engine = SweepEngine(executor="torch", impl="plain")
+            for k, s in picked:
+                t0 = time.perf_counter()
+                rec = engine.run([s]).records[0]
+                out[k] = (time.perf_counter() - t0, rec.backend,
+                          rec.error, rec.result)
+        else:
+            for k, s in picked:
+                t0 = time.perf_counter()
+                ev = simulate(s.graph, list(s.specs), s.bound_w, s.policy,
+                              latency_s=s.latency_s,
+                              bound_schedule=s.bound_schedule)
+                out[k] = (time.perf_counter() - t0, ev.makespan,
+                          ev.energy_j)
+        queue.put(("ok", out))
+    except Exception:     # reported to the parent, which fails the run
+        queue.put(("error", traceback.format_exc()))
+
+
+def _collect(proc, queue, what, timeout=900.0):
+    """A worker's ``("ok", out)``: fails at once if the worker died
+    without sending, or reported an error, or ran past ``timeout``."""
+    import queue as _queue
+
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            status, out = queue.get(timeout=5.0)
+            break
+        except _queue.Empty:
+            require(proc.is_alive(), f"{what} worker exited "
+                                     f"({proc.exitcode}) without a result")
+            require(time.perf_counter() < deadline,
+                    f"{what} worker ran past {timeout} s")
+    proc.join(timeout=60)
+    require(status == "ok", f"{what} worker failed:\n{out}")
+    return out
+
+
+def phase_trace_corpus(torch, launches, smi):
+    """Recorded MPI traces through the port's traces package onto the
+    card: four 64-rank heterogeneous recordings (``record_workload``,
+    seed 0) written as JSONL, loaded strictly (``TraceCorpus.from_dir``),
+    replay-validated and held against the recorded graphs; their family
+    (``ScenarioFamily.from_corpus``, 32 bound fractions x three policies,
+    384 cells) through ``SweepEngine(executor="torch")`` with the counts
+    set to 0 just before it: no failure, no event fallback, every record
+    on ``"torch"``, every bucket one wave_run launch, no kernel build.
+    12 of its cells equal ``impl="plain"`` on the card (0.0; four
+    spawned workers, ``TRACE_PLAIN_GROUPS``, beside the rest) and, for
+    the exact policies, lie inside the event simulator's envelope (2 dt,
+    1% energy; one more worker, on the host).  The
+    same 384 cells through ``SweepService(executor="torch",
+    bucket_rows=64)`` as a burst: every record 0.0 against the sweep's.
+    Then the serve CLI's sweep mode in process on the recorded corpus
+    (``--expect-clean``), and in a subprocess on ``examples/traces`` with
+    ``REPRO_TRACE`` set: both return 0, and the trace file holds the
+    ``service`` and ``power:*`` tracks.  Returns the launch counts."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+
+    from repro_torch.core import SweepEngine, workloads
+    from repro_torch.launch import serve
+    from repro_torch.serving import SweepService, percentile
+    from repro_torch.traces import (TraceCorpus, dump_trace, graphs_match,
+                                    load_trace, reconstruct,
+                                    record_workload)
+
+    def zero():
+        for key in launches:
+            launches[key] = 0
+
+    builders = {"npb-is": workloads.is_builder,
+                "npb-cg": workloads.cg_builder,
+                "npb-ep": workloads.ep_builder}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="trace_corpus_")
+    corpus_dir = Path(tmp.name) / "corpus"
+    corpus_dir.mkdir()
+    workers = []
+    traced = None
+    ctx = mp.get_context("spawn")
+    try:
+        # 1. record
+        truth, members = {}, []
+        for workload, klass in TRACE_MEMBERS:
+            name = f"{workload}-{klass}"
+            t0 = time.perf_counter()
+            trace = record_workload(workload, n_nodes=TRACE_RANKS,
+                                    klass=klass, seed=0, hetero=True)
+            record_s = time.perf_counter() - t0
+            path = corpus_dir / f"{name}.jsonl"
+            dump_trace(trace, path)
+            truth[name] = (workloads.moe_step_builder(TRACE_RANKS, seed=0)
+                           if workload == "moe" else
+                           builders[workload](TRACE_RANKS, klass,
+                                              seed=0)).build()
+            members.append(dict(name=name, ranks=trace.ranks,
+                                records=len(trace.events),
+                                bytes=path.stat().st_size,
+                                record_s=record_s))
+        members.sort(key=lambda m: m["name"])    # the corpus's order
+        # the plain path (on the card) and the event simulator (on the
+        # host) on the picked cells, beside the rest of the phase
+        exact = tuple((m["name"], p) for m in members
+                      for p in FULL_WIDTH_POLICIES if p in EXACT_POLICIES)
+        for what, group in ([("plain", g) for g in TRACE_PLAIN_GROUPS]
+                            + [("event", exact)]):
+            queue = ctx.Queue()
+            proc = ctx.Process(target=_trace_worker,
+                               args=(queue, what, str(corpus_dir), group))
+            proc.start()
+            workers.append((what, proc, queue))
+
+        # 2. load strictly, replay-validate, hold against the recordings
+        for m in members:
+            t0 = time.perf_counter()
+            trace = load_trace(corpus_dir / f"{m['name']}.jsonl")
+            t1 = time.perf_counter()
+            recon = reconstruct(trace, validate=False)
+            m.update(load_s=t1 - t0, reconstruct_s=time.perf_counter() - t1,
+                     jobs=len(recon.graph))
+        t0 = time.perf_counter()
+        corpus = TraceCorpus.from_dir(corpus_dir)
+        corpus_load_s = time.perf_counter() - t0
+        require(corpus.names == [m["name"] for m in members],
+                f"trace_corpus: corpus {corpus.names}")
+        t0 = time.perf_counter()
+        reports = corpus.validate()
+        validate_s = time.perf_counter() - t0
+        for m, entry, rep in zip(members, corpus, reports):
+            require(rep.ok, f"trace_corpus: replay of {m['name']}: {rep}")
+            require(entry.recon.report.clean,
+                    f"trace_corpus: {m['name']} reconstruction not clean")
+            # JSONL stamps are written to 1 ns: a recovered work is the
+            # recorded one within ~1e-9 x the rank's speed (<= 1.32)
+            require(graphs_match(entry.recon.graph, truth[m["name"]],
+                                 work_rtol=TRACE_WORK_RTOL),
+                    f"trace_corpus: {m['name']} reconstruction differs "
+                    f"from the recorded graph")
+            m.update(replay_rel_err=rep.rel_err,
+                     sim_makespan_s=rep.sim_makespan_s)
+
+        # 3. the family; 4. the sweep
+        t0 = time.perf_counter()
+        family = _trace_family(corpus_dir)
+        cells = family.scenarios()
+        family_s = time.perf_counter() - t0
+        require(len(cells) == len(TRACE_MEMBERS) * TRACE_FRACS
+                * len(FULL_WIDTH_POLICIES),
+                f"trace_corpus: {len(cells)} cells")
+        engine = SweepEngine(executor="torch")
+        zero()
+        t0 = time.perf_counter()
+        sweep = engine.run(cells)
+        sweep_wall = time.perf_counter() - t0
+        sweep_launches = dict(launches)
+        prof = sweep.profile
+        require(not sweep.failures,
+                f"trace_corpus sweep: {len(sweep.failures)} failed records, "
+                f"first: {sweep.failures[:1] and sweep.failures[0].error}")
+        require(sweep.event_fallbacks() == [],
+                f"trace_corpus sweep: {len(sweep.event_fallbacks())} event "
+                f"fallbacks")
+        require(all(r.backend == "torch" for r in sweep.records),
+                "trace_corpus sweep: a record left the torch backend")
+        require(all(b.path == "cuda" for b in prof.buckets)
+                and sweep_launches == {"power_step": 0, "waterfill": 0,
+                                       "wave_run": len(prof.buckets)},
+                f"trace_corpus sweep: launches {sweep_launches} for "
+                f"{len(prof.buckets)} buckets")
+        require(prof.compiles == 0, "trace_corpus sweep: a kernel build")
+        for rec in sweep.records:
+            require(len(rec.result.job_ends) == len(rec.scenario.graph),
+                    f"trace_corpus sweep: {rec.scenario.name} did not "
+                    f"complete every job")
+
+        # 6. the service, as a burst
+        zero()
+        with SweepService(executor="torch",
+                          bucket_rows=TRACE_BUCKET_ROWS) as service:
+            t0 = time.perf_counter()
+            served = [t.result(timeout=600)
+                      for t in service.submit_many(cells)]
+            service_wall = time.perf_counter() - t0
+        service_launches = dict(launches)
+        sprof = service.profile
+        require(all(r.ok and r.backend == "torch" for r in served),
+                "trace_corpus service: a request failed or left torch")
+        require(sprof.compiles == 0 and all(b.path == "cuda"
+                                            for b in sprof.buckets)
+                and service_launches["wave_run"] == len(sprof.buckets),
+                f"trace_corpus service: launches {service_launches} for "
+                f"{len(sprof.buckets)} buckets, {sprof.compiles} builds")
+        _, service_diff = _compare_results(
+            [r.result for r in served], [r.result for r in sweep.records],
+            "trace_corpus service vs sweep")
+        require(service_diff == 0.0, f"trace_corpus service: max abs diff "
+                                     f"{service_diff} vs the sweep")
+
+        # 7. the serve CLI in process, on the recorded corpus
+        zero()
+        summary_path = Path(tmp.name) / "serve.json"
+        t0 = time.perf_counter()
+        rc = serve.main(["--trace-corpus", str(corpus_dir), "--executor",
+                         "torch", "--expect-clean", "--rate-hz", "200",
+                         "--repeat", "2", "--bucket-rows",
+                         str(TRACE_BUCKET_ROWS), "--json",
+                         str(summary_path)])
+        cli_wall = time.perf_counter() - t0
+        cli_launches = dict(launches)
+        require(rc == 0, f"trace_corpus serve CLI: exit {rc}")
+        cli = json.loads(summary_path.read_text())
+
+        # 8. the serve CLI with REPRO_TRACE, in a process of its own
+        trace_json = Path(tmp.name) / "serve_trace.json"
+        env = dict(os.environ, REPRO_TRACE=str(trace_json),
+                   PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        traced = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             "--trace-corpus", str(ROOT / "examples" / "traces"),
+             "--executor", "torch", "--expect-clean", "--rate-hz", "200",
+             "--repeat", "2", "--bucket-rows", str(TRACE_BUCKET_ROWS)],
+            cwd=tmp.name, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        traced_out, _ = traced.communicate(timeout=600)
+        traced_wall = time.perf_counter() - t0
+        require(traced.returncode == 0,
+                f"trace_corpus traced serve CLI: exit {traced.returncode}"
+                f"\n{traced_out}")
+        events = json.loads(trace_json.read_text())
+        tracks = sorted({e["args"]["name"] for e in events
+                         if e["ph"] == "M" and e["name"] == "process_name"})
+        require("service" in tracks
+                and any(t.startswith("power:") for t in tracks),
+                f"trace_corpus traced serve CLI: tracks {tracks}")
+
+        # 5. the picked cells against the plain path and the event
+        # simulator: the workers' results
+        plain, event = {}, {}
+        for what, proc, queue in workers:
+            (plain if what == "plain" else event).update(
+                _collect(proc, queue, f"trace_corpus {what}"))
+        picks = _trace_picks(len(TRACE_MEMBERS))
+        require(sorted(plain) == list(range(len(picks))),
+                f"trace_corpus plain: cells {sorted(plain)}")
+        require(all(b == "torch" and e is None
+                    for _, b, e, _ in plain.values()),
+                "trace_corpus plain: a picked cell failed or left torch")
+        plain_rel, plain_diff = _compare_results(
+            [sweep.records[i].result for i in picks],
+            [plain[k][3] for k in range(len(picks))],
+            "trace_corpus sweep vs plain")
+        require(plain_diff == 0.0, f"trace_corpus: max abs diff "
+                                   f"{plain_diff} vs impl='plain'")
+        require(len(event) == len(exact),
+                f"trace_corpus event: {len(event)} cells")
+        worst_ms = worst_e = 0.0
+        for k, ev in event.items():
+            rec = sweep.records[picks[k]]
+            d_ms = abs(rec.result.makespan - ev[1])
+            d_e = abs(rec.result.energy_j - ev[2]) / ev[2]
+            require(d_ms <= 2 * 0.05 and d_e <= 0.01,
+                    f"trace_corpus {rec.scenario.name}/"
+                    f"{rec.scenario.policy}@{rec.scenario.bound_w}: "
+                    f"makespan {rec.result.makespan} vs event {ev[1]}, "
+                    f"energy {rec.result.energy_j} vs {ev[2]}")
+            worst_ms, worst_e = max(worst_ms, d_ms), max(worst_e, d_e)
+    finally:
+        for _, proc, _ in workers:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        if traced is not None and traced.poll() is None:
+            traced.kill()
+            traced.wait()
+        tmp.cleanup()
+    lat = [r.latency_s for r in served]
+    results_s = [b.results_s for b in prof.buckets]
+    emit("trace_corpus", nvidia_smi=smi, members=members,
+         corpus_load_s=corpus_load_s, validate_s=validate_s,
+         family_s=family_s, cells=len(cells), sweep_wall_s=sweep_wall,
+         rows_per_s=len(cells) / sweep_wall, summary=sweep.backend_summary(),
+         buckets=[b.bucket for b in prof.buckets],
+         bucket_rows=[b.rows for b in prof.buckets],
+         results_s=results_s, results_share=sum(results_s) / sweep_wall,
+         kernel_ms=[b.kernel_ms for b in prof.buckets],
+         **{f"{ph}_s": prof.total(ph) for ph in
+            ("pack", "dispatch", "run", "transfer")},
+         launches=sweep_launches, plain_cells=len(picks),
+         plain_cell_s=[plain[k][0] for k in range(len(picks))],
+         max_abs_diff_vs_plain=plain_diff, max_rel_vs_plain=plain_rel,
+         event_cell_s={k: v[0] for k, v in sorted(event.items())},
+         max_makespan_diff_vs_event_s=worst_ms,
+         max_energy_rel_vs_event=worst_e,
+         service=dict(wall_s=service_wall,
+                      rows_per_s=len(served) / service_wall,
+                      latency_p50_s=percentile(lat, 50),
+                      latency_p99_s=percentile(lat, 99),
+                      buckets=len(sprof.buckets),
+                      phantom_rows=service.stats().phantom_rows,
+                      launches=service_launches,
+                      results_s=sprof.total("results"),
+                      max_abs_diff_vs_sweep=service_diff),
+         cli={k: cli[k] for k in ("requests", "wall_s", "throughput_rps",
+                                  "latency_p50_s", "latency_p99_s",
+                                  "fallbacks", "cache_hits", "compiles",
+                                  "recompiles", "compiles_after_warmup")}
+         | dict(rc=rc, wall_s_in_process=cli_wall, launches=cli_launches),
+         cli_traced=dict(rc=traced.returncode, wall_s=traced_wall,
+                         events=len(events), tracks=tracks),
+         phase_wall_s=time.perf_counter() - t_phase)
+    return sweep_launches
+
+
 # ------------------------------------------------------------ LM phases
 LLAMA = "llama3-8b"
 ZAMBA = "zamba2-2.7b"
@@ -1844,6 +2244,7 @@ def sim_phases(torch, device, counters, smi):
                                                           ps.LAUNCHES)
     service_mixed = phase_service_mixed(torch, ps.LAUNCHES, cells, sweep,
                                         solved)
+    trace_corpus = phase_trace_corpus(torch, ps.LAUNCHES, smi)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
     per_wave = ("the per-wave entry points run on the engine's \"step\" "
@@ -1859,6 +2260,7 @@ def sim_phases(torch, device, counters, smi):
          "launches_service_full_width": service_fw["burst"]["wave_run"],
          "launches_service_poisson": service_fw["poisson"]["wave_run"],
          "launches_service_mixed": service_mixed["wave_run"],
+         "launches_trace_corpus": trace_corpus["wave_run"],
          "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
          "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
          "ms_heuristic": fw["ms_heuristic"],

@@ -11,8 +11,11 @@ which runs each bucket in one launch of the ``wave_run`` kernel
 The same buckets are served as an open
 stream by :class:`~repro_torch.serving.service.SweepService` (continuous
 batching with flush deadlines, a result cache and the same fallbacks),
-driven by :func:`~repro_torch.serving.stream.poisson_replay`.  Entry
-points run on the card unless the caller passes ``device="cpu"``.
+driven by :func:`~repro_torch.serving.stream.poisson_replay`.  Recorded
+MPI traces enter through :mod:`repro_torch.traces` (a directory of them
+is a :meth:`~repro_torch.core.scenarios.ScenarioFamily.from_corpus`
+family).  Entry points run on the card unless the caller passes
+``device="cpu"``.
 
     from repro_torch import simulate_batch_torch, TorchBatchSimulator
     from repro_torch.core import SweepEngine, mixed_family

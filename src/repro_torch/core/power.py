@@ -113,6 +113,10 @@ class PowerLUT:
                 best = s.freq_mhz
         return best
 
+    def freq_for_power_clamped(self, bound_w: float) -> float:
+        f = self.freq_for_power(bound_w)
+        return self.states[0].freq_mhz if f is None else f
+
 
 @dataclass(frozen=True)
 class NodeSpec:

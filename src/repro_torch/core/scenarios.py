@@ -115,12 +115,15 @@ class ScenarioFamily:
                     DEFAULT_POLICIES,
                     latency_s: float = 0.05,
                     strict: bool = True) -> "ScenarioFamily":
-        """A family of recorded MPI traces: the port has no traces
-        package yet (it comes with the cluster scheduler, ROADMAP queue
-        1 item 4), so this raises."""
-        raise NotImplementedError(
-            "trace-corpus families need the traces package, which the "
-            "port does not have yet (ROADMAP queue 1 item 4)")
+        """A family whose members are reconstructed from a directory of
+        recorded MPI traces (the :mod:`repro_torch.traces` frontend) —
+        each trace's graph on its own header-declared cluster, swept
+        like any synthetic member.  See ``docs/traces.md``."""
+        from repro_torch.traces import TraceCorpus
+
+        corpus = TraceCorpus.from_dir(path, strict=strict)
+        return corpus.family(name=name, bound_fracs=bound_fracs,
+                             policies=policies, latency_s=latency_s)
 
     def shapes(self) -> List[Tuple[int, int]]:
         """Sorted distinct (nodes, jobs) shape classes in the family."""

@@ -223,6 +223,17 @@ class SweepResult:
             parts += f" | {self.profile.summary()}"
         return f"backends: {parts}"
 
+    def event_fallbacks(self) -> List[SweepRecord]:
+        """Records that landed on the per-scenario event simulator.
+
+        On the thread/process/serial executors every record is an event
+        record and that is not a fallback; under a batched executor a
+        non-empty result means part of the sweep silently lost its
+        batching — the trace-corpus sweep and the serve CLI's
+        ``--expect-clean`` gate assert on this.
+        """
+        return [r for r in self.records if r.backend == "event"]
+
     def result(self, name: str, policy: str,
                bound_w: Optional[float] = None) -> SimResult:
         """Exact lookup of one scenario's SimResult (raises if absent)."""

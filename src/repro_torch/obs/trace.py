@@ -1,11 +1,10 @@
 """Span tracing in Chrome ``trace_event`` format.
 
-The port's copy of the reference's ``repro.obs.trace``, without its
-environment activation (``REPRO_TRACE``).  Spans, instants, counters,
-async spans (one service request's submit→resolve life, begun and ended
-on different threads) and already-measured complete events are
-collected into one JSON array that Chrome's ``about:tracing`` and
-Perfetto open directly.
+The port's copy of the reference's ``repro.obs.trace``.  Spans,
+instants, counters, async spans (one service request's submit→resolve
+life, begun and ended on different threads) and already-measured
+complete events are collected into one JSON array that Chrome's
+``about:tracing`` and Perfetto open directly.
 
 * **Near-zero cost when disabled.**  Instrumentation sites call the
   module-level helpers (:func:`span`, :func:`instant`, :func:`counter`,
@@ -15,8 +14,14 @@ Perfetto open directly.
 * **Tracks.**  String ``track``/``lane`` names map to stable integer
   process/thread ids with their metadata events.
 
-Enabling: inject a :class:`Tracer` with :func:`install`; write it out
-with :meth:`Tracer.write`.
+Enabling: inject a :class:`Tracer` with :func:`install` and write it
+out with :meth:`Tracer.write`, or set ``REPRO_TRACE=<path>`` in the
+environment before the process starts — the tracer is installed when
+:mod:`repro_torch.obs` is first imported and the file written at exit
+(see :func:`configure_from_env`).  A process that imports both this
+package and the reference's gets two tracers on the one path, each
+writing its own file at exit: run a traced command of the port in an
+interpreter of its own.
 
 Example::
 
@@ -32,10 +37,17 @@ Example::
 
 from __future__ import annotations
 
+import atexit
 import json
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+#: Environment variable naming the trace output path.  Set it and every
+#: instrumented layer of one process run lands in a single Chrome
+#: trace, written at interpreter exit (and on :func:`flush_env_trace`).
+TRACE_ENV = "REPRO_TRACE"
 
 #: The process-wide tracer, or ``None`` when tracing is disabled.  The
 #: module-level emit helpers read it once per call — the whole cost of
@@ -348,3 +360,33 @@ def async_end(name: str, aid: str, cat: str = "",
     t = _TRACER
     if t is not None:
         t.async_end(name, aid, cat=cat, track=track, ts=ts, args=args)
+
+
+# ------------------------------------------------------ env activation
+_env_tracer: Optional[Tracer] = None
+
+
+def configure_from_env() -> Optional[Tracer]:
+    """Install a file-backed tracer when ``REPRO_TRACE=<path>`` is set.
+
+    Idempotent: the first call (run automatically on package import)
+    installs the tracer and registers an exit hook that writes the
+    file; later calls return the same tracer.  Without the variable it
+    does nothing and returns ``None``.
+    """
+    global _env_tracer
+    path = os.environ.get(TRACE_ENV)
+    if not path:
+        return None
+    if _env_tracer is None:
+        _env_tracer = Tracer(path=path)
+        atexit.register(flush_env_trace)
+    return install(_env_tracer)
+
+
+def flush_env_trace() -> Optional[str]:
+    """Write the env-configured tracer's file now (also runs at
+    interpreter exit); returns the path or ``None`` when inactive."""
+    if _env_tracer is None or not _env_tracer.path:
+        return None
+    return _env_tracer.write()

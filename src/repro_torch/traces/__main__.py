@@ -1,0 +1,8 @@
+"""Entry point: ``python -m repro_torch.traces <subcommand>``."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -208,7 +208,12 @@ named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
          "repro_torch.policies.vector", "repro_torch.policies.learned",
          "repro_torch.obs.trace", "repro_torch.backends.profile",
          "repro_torch.obs.metrics", "repro_torch.serving.service",
-         "repro_torch.serving.stream"}}
+         "repro_torch.serving.stream", "repro_torch.obs.timeline",
+         "repro_torch.traces", "repro_torch.traces.schema",
+         "repro_torch.traces.calibrate", "repro_torch.traces.reconstruct",
+         "repro_torch.traces.replay", "repro_torch.traces.record",
+         "repro_torch.traces.corpus", "repro_torch.traces.cli",
+         "repro_torch.traces.__main__"}}
 assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe

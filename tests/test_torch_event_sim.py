@@ -38,6 +38,7 @@ from repro_torch.policies import (available_policies, get_policy,
 from test_policies import GOLDEN
 
 GOLDEN_PATH = Path(__file__).parent / "golden" / "listing2.json"
+SAMPLE_CORPUS = Path(__file__).resolve().parents[1] / "examples" / "traces"
 REL = 1e-12
 EVENT_POLICIES = ("equal-share", "ilp", "ilp-makespan", "heuristic",
                   "countdown", "oracle", "learned")
@@ -292,13 +293,15 @@ FAMILIES = {
     "layered": lambda m: m.random_layered_family(seed=3),
     "npb": lambda m: m.npb_family(seed=1),
     "lm": lambda m: m.lm_family(seed=2),
+    "traces": lambda m: m.ScenarioFamily.from_corpus(SAMPLE_CORPUS),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_scenario_families_match_reference(name):
-    """Same seed, same members, bounds and cells (names, tags, bounds,
-    schedules and graphs)."""
+    """Same seed (or the same recorded corpus, ``traces``), same
+    members, bounds and cells (names, tags, bounds, schedules and
+    graphs)."""
     ref = FAMILIES[name](ref_sc).scenarios()
     got = FAMILIES[name](port_sc).scenarios()
     assert len(got) == len(ref)
@@ -312,6 +315,3 @@ def test_scenario_families_match_reference(name):
         assert [s.lut.name for s in a.specs] == [s.lut.name for s in b.specs]
 
 
-def test_trace_corpus_family_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_sc.ScenarioFamily.from_corpus(tmp_path)
