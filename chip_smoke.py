@@ -26,6 +26,13 @@ port's two paths:
   family through the sweep, the service and the serve CLI's
   ``--trace-corpus`` mode (once with ``REPRO_TRACE`` set), 12 cells
   against ``impl="plain"`` and the event simulator;
+* the cluster scheduler (``repro_torch.cluster``): the bundled 1,000-job
+  arrival stream on 12 nodes and a 128-job stream over those four
+  recordings on 256 nodes, each calibrated, scheduled under the four
+  outer policies and replayed (every job's realized power schedule as
+  its bound schedule) on the card, held against ``impl="plain"`` and
+  the vector executor, and the ``python -m repro_torch.cluster`` CLI
+  (once with ``REPRO_TRACE`` set);
 * the dense LM serving path at full width, llama3-8b with random bf16
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
@@ -53,6 +60,7 @@ version.  Run from the repository root:
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1588,6 +1596,428 @@ def phase_trace_corpus(torch, launches, smi):
     return sweep_launches
 
 
+# ------------------------------------------------------------- cluster
+#: Phase ``cluster``: the outer policies, run once per stream and policy.
+CLUSTER_POLICY_NAMES = ("fifo-equal-split", "backfill", "power-aware",
+                        "fair-share")
+#: Stream A: the bundled 1,000-job stream over the ``mixed`` pool.
+CLUSTER_1K = ROOT / "examples" / "cluster" / "arrivals_1k.jsonl"
+CLUSTER_1K_NODES = 12
+CLUSTER_BOUND_FRAC = 0.5
+CLUSTER_LEVELS = 6
+#: Stream B: a Poisson stream over the four 64-rank recordings of
+#: ``trace_corpus`` (``TRACE_MEMBERS``) on a 256-node pool, offered
+#: ``CLUSTER_RATE_FACTOR`` x what four jobs at full power finish.
+CLUSTER_CORPUS_JOBS = 128
+CLUSTER_CORPUS_NODES = 256
+CLUSTER_RATE_FACTOR = 1.5
+#: The event simulator's envelope (and the vector backend's control
+#: tick): 2 dt on makespan, 1% on energy.
+ENVELOPE_DT = 0.05
+
+
+def _cluster_worker(queue, what, payload) -> None:
+    """Worker process of phase ``cluster``.  ``what="plain"``: the
+    pickled replay cells through the sweep at ``impl="plain"`` on the
+    card, one at a time, sending back ``[(seconds, backend, error,
+    result)]``.  ``what="vector"``: a pickled ``{policy: cells}`` through
+    ``SweepEngine(executor="vector")`` on the host, sending back
+    ``{policy: (seconds, [(backend, error, makespan, energy)])}``.  A
+    failure sends its traceback."""
+    import pickle
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.core import SweepEngine
+
+        cells = pickle.loads(payload)
+        if what == "plain":
+            engine = SweepEngine(executor="torch", impl="plain")
+            out = []
+            for s in cells:
+                t0 = time.perf_counter()
+                rec = engine.run([s]).records[0]
+                out.append((time.perf_counter() - t0, rec.backend,
+                            rec.error, rec.result))
+        else:
+            out = {}
+            for policy, group in cells.items():
+                t0 = time.perf_counter()
+                sweep = SweepEngine(executor="vector").run(group)
+                out[policy] = (time.perf_counter() - t0,
+                               _cluster_vector_rows(sweep))
+        queue.put(("ok", out))
+    except Exception:     # reported to the parent, which fails the run
+        queue.put(("error", traceback.format_exc()))
+
+
+def _cluster_vector_rows(sweep):
+    """What the envelope check reads of a vector sweep (picklable)."""
+    return [(r.backend, r.error, r.result.makespan if r.ok else None,
+             r.result.energy_j if r.ok else None) for r in sweep.records]
+
+
+def _cluster_record_corpus(corpus_dir):
+    """``trace_corpus``'s four 64-rank recordings (seed 0), written as
+    JSONL into ``corpus_dir``."""
+    from repro_torch.traces import dump_trace, record_workload
+
+    for workload, klass in TRACE_MEMBERS:
+        trace = record_workload(workload, n_nodes=TRACE_RANKS, klass=klass,
+                                seed=0, hetero=True)
+        dump_trace(trace, corpus_dir / f"{workload}-{klass}.jsonl")
+
+
+def _cluster_envelope(records, vector, what):
+    """Each torch record inside the event envelope of its vector twin
+    (``(backend, error, makespan, energy)``): returns the largest
+    relative makespan and energy differences."""
+    worst_ms = worst_e = 0.0
+    for rec, (backend, err, ms, energy) in zip(records, vector):
+        require(backend == "vector" and err is None,
+                f"{what}: vector row {rec.scenario.name} on {backend} "
+                f"({err})")
+        got = rec.result
+        require(abs(got.makespan - ms) <= 2 * ENVELOPE_DT
+                and abs(got.energy_j - energy) <= 0.01 * energy,
+                f"{what}: {rec.scenario.name} makespan {got.makespan} vs "
+                f"vector {ms}, energy {got.energy_j} vs {energy}")
+        worst_ms = max(worst_ms, abs(got.makespan - ms) / ms)
+        worst_e = max(worst_e, abs(got.energy_j - energy) / energy)
+    return worst_ms, worst_e
+
+
+class _ClusterStream:
+    """One stream's run through the port's cluster entry points on the
+    card: the calibration, then per policy the outer loop and the
+    replay, each sweep with the launch counts set to 0 just before it
+    and read just after.  Every torch sweep's bucket profiles are kept
+    in order (``profiles``) for the phase's no-late-build check."""
+
+    def __init__(self, name, launches, profiles):
+        self.name = name
+        self.launches = launches
+        self.profiles = profiles
+        self.line = {"stream": name}
+        self.results, self.checks = {}, {}
+        self.wave_run = 0
+
+    def _counted(self, fn):
+        """``fn()``, its wall and the launches it made."""
+        for key in self.launches:
+            self.launches[key] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, dict(self.launches)
+
+    def _sweep_checks(self, sweep, launches, what):
+        prof = sweep.profile
+        require(not sweep.failures, f"{what}: {len(sweep.failures)} failed "
+                                    f"records")
+        require(sweep.event_fallbacks() == [],
+                f"{what}: {len(sweep.event_fallbacks())} event fallbacks")
+        require(all(r.backend == "torch" for r in sweep.records),
+                f"{what}: a record left the torch backend")
+        require(all(b.path == "cuda" for b in prof.buckets)
+                and launches == {"power_step": 0, "waterfill": 0,
+                                 "wave_run": len(prof.buckets)},
+                f"{what}: launches {launches} for {len(prof.buckets)} "
+                f"buckets")
+        self.profiles.append(prof)
+        self.wave_run += launches["wave_run"]
+
+    def calibrate(self, model):
+        sweep, wall, launches = self._counted(model.calibrate)
+        what = f"cluster {self.name} calibration"
+        self._sweep_checks(sweep, launches, what)
+        self.line["calibration"] = dict(
+            wall_s=wall, cells=len(sweep), buckets=len(sweep.profile.buckets),
+            launches=launches["wave_run"],
+            kernel_ms=[b.kernel_ms for b in sweep.profile.buckets],
+            summary=sweep.backend_summary())
+
+    def outer_loops(self, trace, bound, nodes, model):
+        from repro_torch.cluster import ClusterScheduler, report
+
+        self.line["policies"] = {}
+        for policy in CLUSTER_POLICY_NAMES:
+            t0 = time.perf_counter()
+            result = ClusterScheduler(trace, bound_w=bound, total_nodes=nodes,
+                                      policy=policy, model=model).run()
+            wall = time.perf_counter() - t0
+            require(len(result.runs) == len(trace.jobs)
+                    and all(r.end_t is not None for r in result.runs),
+                    f"cluster {self.name} {policy}: the stream did not drain")
+            self.results[policy] = result
+            sched = [len(c.bound_schedule) for c in result.scenarios()]
+            self.line["policies"][policy] = dict(
+                outer_loop_s=wall,
+                report={k: v for k, v in report(result).as_dict().items()
+                        if k not in ("policy", "bound_w", "total_nodes")},
+                schedule_cols_max=max(sched),
+                schedule_cols_mean=sum(sched) / len(sched))
+
+    def replays(self):
+        from repro_torch.cluster import replay
+
+        for policy, result in self.results.items():
+            what = f"cluster {self.name} {policy} replay"
+            check, wall, launches = self._counted(lambda: replay(result))
+            require(check.event_fallbacks == 0 and check.recompiles == 0,
+                    f"{what}: {check.event_fallbacks} event fallbacks, "
+                    f"{check.recompiles} recompiles")
+            self._sweep_checks(check.sweep, launches, what)
+            for rec in check.sweep.records:
+                require(len(rec.result.job_ends) == len(rec.scenario.graph)
+                        and math.isfinite(rec.result.makespan)
+                        and rec.result.makespan > 0,
+                        f"{what}: {rec.scenario.name} did not complete")
+            self.checks[policy] = check
+            prof = check.sweep.profile
+            results_s = prof.total("results")
+            self.line["policies"][policy].update(
+                replay_wall_s=wall, rows=len(check.sweep),
+                rows_per_s=len(check.sweep) / wall, results_s=results_s,
+                results_share=results_s / wall,
+                launches=launches["wave_run"],
+                buckets=[b.bucket for b in prof.buckets],
+                kernel_ms=[b.kernel_ms for b in prof.buckets],
+                max_rel_err=check.max_rel_err,
+                mean_rel_err=check.mean_rel_err,
+                event_fallbacks=check.event_fallbacks,
+                recompiles=check.recompiles)
+
+    def vector(self, policy, seconds, rows):
+        """Hold ``policy``'s replay against its vector twin's ``rows``."""
+        ms, energy = _cluster_envelope(self.checks[policy].sweep.records,
+                                       rows, f"cluster {self.name} {policy} "
+                                             f"vs vector")
+        self.line["policies"][policy].update(
+            vector_s=seconds, max_makespan_rel_vs_vector=ms,
+            max_energy_rel_vs_vector=energy)
+
+
+def phase_cluster(torch, launches, smi):
+    """The cluster scheduler (``repro_torch.cluster``) on the card, two
+    streams through the port's entry points with ``device=None``: the
+    rate model's calibration sweep, the outer discrete-event loop of each
+    of the four outer policies once, and the replay of that one
+    ``ClusterResult`` (every job's realized watt history as its bound
+    schedule) through ``replay``, each sweep with the launch counts set
+    to 0 just before it: no failure, no event fallback, every record on
+    ``"torch"``, every bucket one ``wave_run`` launch, no kernel build
+    after the phase's first dispatch.  Every replay row lies inside the
+    event envelope (2 dt, 1% energy) of the same cells on
+    ``executor="vector"`` on the host.
+
+    Stream A is the bundled 1,000-job stream on 12 nodes at
+    ``suggest_bound(frac=0.5)``: every replay record equals the same
+    cells on ``impl="plain"`` on the card (at ``TOL``), power-aware's
+    stream makespan is below fifo-equal-split's, and ``python -m
+    repro_torch.cluster run ... --expect-clean`` exits 0 in a process of
+    its own, once plain and once with ``REPRO_TRACE`` (whose file holds
+    the ``cluster`` track).  Stream B is ``CLUSTER_CORPUS_JOBS`` Poisson
+    arrivals (seed 0) over ``trace_corpus``'s four 64-rank recordings on
+    256 nodes, at ``CLUSTER_RATE_FACTOR`` x 4 / the members' mean
+    calibrated makespan at their top level: one replay row a member
+    (each from another policy) equals ``impl="plain"`` in spawned card
+    workers.  Prints one line a stream; returns the launch counts."""
+    import multiprocessing as mp
+    import os
+    import pickle
+    import tempfile
+
+    from repro_torch.cluster import (ArrivalJob, ArrivalTrace, RateModel,
+                                     load_arrivals, member_pool,
+                                     poisson_arrivals, replay,
+                                     suggest_bound)
+    from repro_torch.core import SweepEngine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="cluster_")
+    ctx = mp.get_context("spawn")
+    workers, clis, profiles = [], [], []
+    try:
+        # the CLI, twice in processes of its own, beside the rest
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        env.pop("REPRO_TRACE", None)
+        trace_json = Path(tmp.name) / "cluster_trace.json"
+        for traced in (False, True):
+            argv = [sys.executable, "-m", "repro_torch.cluster", "run",
+                    str(CLUSTER_1K), "--nodes", str(CLUSTER_1K_NODES),
+                    "--bound-frac", str(CLUSTER_BOUND_FRAC),
+                    "--levels", str(CLUSTER_LEVELS), "--expect-clean",
+                    "--json", str(Path(tmp.name) / f"cli_{traced}.json")]
+            clis.append((traced, time.perf_counter(), subprocess.Popen(
+                argv, cwd=tmp.name, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                env=dict(env, REPRO_TRACE=str(trace_json)) if traced
+                else env)))
+
+        # ---- stream B: the corpus stream at real size
+        b = _ClusterStream("cluster_corpus", launches, profiles)
+        corpus_dir = Path(tmp.name) / "corpus"
+        corpus_dir.mkdir()
+        t0 = time.perf_counter()
+        _cluster_record_corpus(corpus_dir)
+        b.line["record_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool = member_pool(str(corpus_dir))
+        b.line["pool_s"] = time.perf_counter() - t0
+        b.line["members"] = {m.name: dict(zip(("nodes", "jobs"), m.shape))
+                             for m in pool}
+        # calibrate on the pool (one arrival a member), then generate
+        # the stream at the rate the curves give
+        model = RateModel(ArrivalTrace(
+            pool, [ArrivalJob(name=m.name, t=0.0, member=m.name)
+                   for m in pool]), levels=CLUSTER_LEVELS)
+        b.calibrate(model)
+        best = [model.best_makespan(m.name) for m in pool]
+        rate_hz = CLUSTER_RATE_FACTOR * 4 / (sum(best) / len(best))
+        print(f"cluster_corpus: rate_hz {rate_hz!r} (best makespans "
+              f"{best})", flush=True)
+        trace = poisson_arrivals(pool, n_jobs=CLUSTER_CORPUS_JOBS,
+                                 rate_hz=rate_hz, seed=0)
+        model.trace = trace
+        bound = suggest_bound(trace, CLUSTER_CORPUS_NODES,
+                              frac=CLUSTER_BOUND_FRAC)
+        b.line.update(rate_hz=rate_hz, best_makespan_s=best, bound_w=bound,
+                      nodes=CLUSTER_CORPUS_NODES, jobs=len(trace))
+        b.outer_loops(trace, bound, CLUSTER_CORPUS_NODES, model)
+        # one replay row a member (the job with the longest schedule,
+        # each member from another policy) on the plain path in card
+        # workers, and every row on the vector executor in host workers
+        # (one a policy: an npb-cg row is ~12k waves on the host too)
+        b_cells = {p: r.scenarios() for p, r in b.results.items()}
+        picks = []
+        for i, m in enumerate(pool):
+            policy = CLUSTER_POLICY_NAMES[i % len(CLUSTER_POLICY_NAMES)]
+            rows = [k for k, c in enumerate(b_cells[policy])
+                    if c.tags["member"] == m.name]
+            require(rows, f"cluster_corpus: no {m.name} job in {policy}")
+            picks.append((policy, max(rows, key=lambda k: (
+                len(b_cells[policy][k].bound_schedule), -k))))
+        for what, payload in (
+                [("plain", pickle.dumps([b_cells[p][k]]))
+                 for p, k in picks]
+                + [("vector", pickle.dumps({p: cells}))
+                   for p, cells in b_cells.items()]):
+            queue = ctx.Queue()
+            proc = ctx.Process(target=_cluster_worker,
+                               args=(queue, what, payload))
+            proc.start()
+            workers.append((what, proc, queue))
+        b.replays()
+
+        # ---- stream A: the bundled 1k stream
+        a = _ClusterStream("cluster_1k", launches, profiles)
+        t0 = time.perf_counter()
+        trace_a = load_arrivals(CLUSTER_1K)
+        a.line["load_s"] = time.perf_counter() - t0
+        bound_a = suggest_bound(trace_a, CLUSTER_1K_NODES,
+                                frac=CLUSTER_BOUND_FRAC)
+        a.line.update(bound_w=bound_a, nodes=CLUSTER_1K_NODES,
+                      jobs=len(trace_a))
+        model_a = RateModel(trace_a, levels=CLUSTER_LEVELS)
+        a.calibrate(model_a)
+        a.outer_loops(trace_a, bound_a, CLUSTER_1K_NODES, model_a)
+        aware = a.results["power-aware"].makespan
+        fifo = a.results["fifo-equal-split"].makespan
+        require(aware < fifo, f"cluster_1k: power-aware makespan {aware} "
+                              f"not below fifo-equal-split's {fifo}")
+        a.replays()
+        plain_engine = SweepEngine(executor="torch", impl="plain")
+        for policy, result in a.results.items():
+            t0 = time.perf_counter()
+            plain = replay(result, engine=plain_engine)
+            plain_s = time.perf_counter() - t0
+            rel, diff = _compare_results(
+                [r.result for r in a.checks[policy].sweep.records],
+                [r.result for r in plain.sweep.records],
+                f"cluster_1k {policy} vs plain")
+            t0 = time.perf_counter()
+            vec = replay(result, executor="vector")
+            vector_s = time.perf_counter() - t0
+            require(vec.event_fallbacks == 0,
+                    f"cluster_1k {policy}: vector event fallbacks")
+            a.vector(policy, vector_s, _cluster_vector_rows(vec.sweep))
+            a.line["policies"][policy].update(
+                plain_s=plain_s, max_abs_diff_vs_plain=diff,
+                max_rel_vs_plain=rel)
+
+        # ---- stream B's workers
+        plain_b = []
+        for what, proc, queue in workers:
+            out = _collect(proc, queue, f"cluster_corpus {what}")
+            if what == "plain":
+                plain_b += out
+            else:
+                for policy, (seconds, rows) in out.items():
+                    b.vector(policy, seconds, rows)
+        require(len(plain_b) == len(picks)
+                and all(bk == "torch" and e is None
+                        for _, bk, e, _ in plain_b),
+                "cluster_corpus plain: a picked row failed or left torch")
+        rel, diff = _compare_results(
+            [b.checks[p].sweep.records[k].result for p, k in picks],
+            [r for _, _, _, r in plain_b], "cluster_corpus vs plain")
+        b.line["plain"] = dict(
+            rows=[f"{p}/{b_cells[p][k].tags['job']}"
+                  f"/{b_cells[p][k].tags['member']}" for p, k in picks],
+            schedule_cols=[len(b_cells[p][k].bound_schedule)
+                           for p, k in picks],
+            row_s=[s for s, _, _, _ in plain_b],
+            max_abs_diff_vs_plain=diff, max_rel_vs_plain=rel)
+
+        # ---- the CLI runs
+        for traced, t0, proc in clis:
+            out, _ = proc.communicate(timeout=900)
+            wall = time.perf_counter() - t0
+            require(proc.returncode == 0,
+                    f"cluster CLI{' (traced)' if traced else ''}: exit "
+                    f"{proc.returncode}\n{out}")
+            summary = json.loads(
+                (Path(tmp.name) / f"cli_{traced}.json").read_text())
+            entry = dict(rc=proc.returncode, wall_s=wall, makespans={
+                p["policy"]: p["makespan"] for p in summary["policies"]})
+            if traced:
+                events = json.loads(trace_json.read_text())
+                tracks = sorted({e["args"]["name"] for e in events
+                                 if e["ph"] == "M"
+                                 and e["name"] == "process_name"})
+                admits = sum(e["name"] == "admit" and e["cat"] == "cluster"
+                             for e in events)
+                require("cluster" in tracks and admits == len(trace_a)
+                        * len(CLUSTER_POLICY_NAMES),
+                        f"cluster traced CLI: tracks {tracks}, {admits} "
+                        f"admits")
+                entry.update(events=len(events), tracks=tracks)
+            a.line["cli_traced" if traced else "cli"] = entry
+    finally:
+        for _, proc, _ in workers:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        for _, _, proc in clis:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+
+    # no kernel build after the phase's first dispatch
+    built = [b.compiled for prof in profiles for b in prof.buckets]
+    require(not any(built[1:]), f"cluster: {sum(built[1:])} kernel builds "
+                                f"after the first dispatch")
+    wall = time.perf_counter() - t_phase
+    for stream in (a, b):
+        emit("cluster", nvidia_smi=smi, **stream.line,
+             wave_run_launches=stream.wave_run, kernel_builds=sum(built),
+             phase_wall_s=wall)
+    return {"wave_run": a.wave_run + b.wave_run,
+            "cluster_1k": a.wave_run, "cluster_corpus": b.wave_run}
+
+
 # ------------------------------------------------------------ LM phases
 LLAMA = "llama3-8b"
 ZAMBA = "zamba2-2.7b"
@@ -2245,6 +2675,7 @@ def sim_phases(torch, device, counters, smi):
     service_mixed = phase_service_mixed(torch, ps.LAUNCHES, cells, sweep,
                                         solved)
     trace_corpus = phase_trace_corpus(torch, ps.LAUNCHES, smi)
+    cluster = phase_cluster(torch, ps.LAUNCHES, smi)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
     per_wave = ("the per-wave entry points run on the engine's \"step\" "
@@ -2261,6 +2692,7 @@ def sim_phases(torch, device, counters, smi):
          "launches_service_poisson": service_fw["poisson"]["wave_run"],
          "launches_service_mixed": service_mixed["wave_run"],
          "launches_trace_corpus": trace_corpus["wave_run"],
+         "launches_cluster": cluster["wave_run"],
          "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
          "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
          "ms_heuristic": fw["ms_heuristic"],

@@ -213,7 +213,10 @@ named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
          "repro_torch.traces.calibrate", "repro_torch.traces.reconstruct",
          "repro_torch.traces.replay", "repro_torch.traces.record",
          "repro_torch.traces.corpus", "repro_torch.traces.cli",
-         "repro_torch.traces.__main__"}}
+         "repro_torch.traces.__main__", "repro_torch.cluster",
+         "repro_torch.cluster.arrivals", "repro_torch.cluster.policies",
+         "repro_torch.cluster.scheduler", "repro_torch.cluster.metrics",
+         "repro_torch.cluster.cli", "repro_torch.cluster.__main__"}}
 assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe
