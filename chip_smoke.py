@@ -33,6 +33,15 @@ port's two paths:
   its bound schedule) on the card, held against ``impl="plain"`` and
   the vector executor, and the ``python -m repro_torch.cluster`` CLI
   (once with ``REPRO_TRACE`` set);
+* the differentiable layer (``repro_torch.diff``): the soft makespan and
+  its gradient on the card against the CPU and central differences, and
+  its anneal to the exact smooth-LUT makespan (float64), on the four
+  graphs of the gradient tests; gradient-descended caps on Listing 2 at
+  7, 9 and 12 W against the ILP (300 steps, float32); the policy
+  trainer on its 20 scenarios for 3 steps (the bundled checkpoint took
+  150), held against the CPU; the trainer's CLI in its own process, and
+  ``"learned"`` with the checkpoint it wrote through the sweep on the
+  per-wave ``power_step`` path, against ``impl="plain"``;
 * the dense LM serving path at full width, llama3-8b with random bf16
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
   512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
@@ -2018,6 +2027,321 @@ def phase_cluster(torch, launches, smi):
             "cluster_1k": a.wave_run, "cluster_corpus": b.wave_run}
 
 
+# ---------------------------------------------------- differentiable layer
+#: Phase ``diff``: the temperature of the gradient checks, the central
+#: difference step and the bars (float64, the reference's x64 bars).
+DIFF_T = 0.1
+DIFF_FD_H = 1e-5
+DIFF_VALUE_RTOL = 1e-9
+DIFF_GRAD_RTOL = 1e-7
+DIFF_FD_RTOL = 1e-3
+DIFF_LADDER = (0.5, 0.2, 0.1, 0.05, 0.02)
+#: ``benchmarks/diff_opt.py`` without ``--quick``: Listing 2 at three
+#: bounds, 300 Adam steps, a gap to the ILP of at most +2%.
+DIFF_BOUNDS = (7.0, 9.0, 12.0)
+DIFF_OPT_STEPS = 300
+DIFF_ILP_GAP_MAX = 0.02
+#: The trainer on all 20 scenarios of ``training_scenarios(0)``, cut in
+#: depth to 3 steps, one a rung of its temperature ladder (the bundled
+#: checkpoint took 150; at 15 steps, 2.75 s each on an H100, the phase
+#: took 144 s), every loss against the same run on the CPU at rtol 1e-4.
+DIFF_TRAIN_STEPS = 3
+DIFF_TRAIN_RTOL = 1e-4
+
+
+def _diff_zoo():
+    """``tests/test_diff_grad.py``'s graph zoo, built by the port."""
+    from repro_torch import traces
+    from repro_torch.core import (fork_join_graph, heterogeneous_cluster,
+                                  homogeneous_cluster, layered_dag,
+                                  listing2_graph)
+
+    l2, l2_specs = listing2_graph(), homogeneous_cluster(3)
+    recon = traces.reconstruct(traces.loads_trace(traces.dumps_trace(
+        traces.record_graph(l2, l2_specs))))
+    return [("listing2", l2, l2_specs),
+            ("layered", layered_dag(4, layers=3, seed=11),
+             homogeneous_cluster(4)),
+            ("forkjoin", fork_join_graph(4, stages=2, seed=12),
+             heterogeneous_cluster(4)),
+            ("trace-recon", recon.graph, list(recon.specs))]
+
+
+def _diff_caps(specs, frac=0.55, seed=5):
+    """A cap point away from LUT state powers and symmetry ties (the
+    tests' ``generic_caps``)."""
+    import numpy as np
+
+    from repro_torch.core.power import lut_table
+
+    rng = np.random.default_rng(seed)
+    tab = lut_table(specs)
+    lo, hi = np.asarray(tab.cap_floor), np.asarray(tab.p_max)
+    u = rng.uniform(0.35, 0.8, len(specs))
+    return lo + (frac * u / u.mean()).clip(0.05, 0.95) * (hi - lo)
+
+
+def _diff_value_grad(torch, soft, caps, knots=None):
+    from repro_torch.diff.softsim import soft_makespan
+
+    x = torch.tensor(caps, dtype=torch.float64, device=soft.device,
+                     requires_grad=True)
+    val = soft_makespan(x, soft, DIFF_T, knot_times=knots)
+    (g,) = torch.autograd.grad(val, x)
+    return float(val.detach()), g.cpu().numpy()
+
+
+def _diff_checks(torch, device, name, graph, specs, knots=None):
+    """One zoo case on the card against the CPU (value and gradient),
+    the card's gradient against central differences on the card, and the
+    card's anneal down the ladder against the exact smooth-LUT makespan
+    (static caps, or a two-row schedule switching at ``knots``)."""
+    import numpy as np
+
+    from repro_torch.core.batchsim import simulate_batch
+    from repro_torch.diff.softsim import build_soft_arrays, soft_makespan
+    from repro_torch.policies import VectorStaticCaps
+
+    base = _diff_caps(specs)
+    caps = base if knots is None else np.stack([base, base[::-1].copy()])
+    cpu = build_soft_arrays(graph, specs, device="cpu")
+    card = build_soft_arrays(graph, specs, device=device)
+    v_cpu, g_cpu = _diff_value_grad(torch, cpu, caps, knots)
+    v_card, g_card = _diff_value_grad(torch, card, caps, knots)
+
+    def f(c, t=DIFF_T):
+        with torch.no_grad():
+            return float(soft_makespan(
+                torch.tensor(c, dtype=torch.float64, device=device), card,
+                t, knot_times=knots))
+
+    fd = np.zeros(caps.size)
+    for i in range(caps.size):
+        e = np.zeros(caps.size)
+        e[i] = DIFF_FD_H
+        fd[i] = (f(caps + e.reshape(caps.shape))
+                 - f(caps - e.reshape(caps.shape))) / (2 * DIFF_FD_H)
+    fd = fd.reshape(caps.shape)
+    bound = float(base.sum())
+    if knots is None:
+        policy, sched = VectorStaticCaps(caps=caps), None
+    else:
+        policy = VectorStaticCaps(caps_schedule=caps)
+        sched = [[(float(k), bound) for k in knots]]
+    exact = simulate_batch(graph, specs, [bound], policy=policy,
+                           bound_schedules=sched,
+                           smooth_lut=True)[0].makespan
+    errs = [abs(f(caps, t) - exact) for t in DIFF_LADDER]
+    out = dict(
+        case=name + ("" if knots is None else "-schedule"),
+        value_rel_vs_cpu=abs(v_card - v_cpu) / abs(v_cpu),
+        grad_rel_vs_cpu=float(np.linalg.norm(g_card - g_cpu)
+                              / np.linalg.norm(g_cpu)),
+        grad_rel_vs_fd=float(np.linalg.norm(g_card - fd)
+                             / max(np.linalg.norm(fd), 1e-9)),
+        exact=exact, anneal_abs_err=errs)
+    require(out["value_rel_vs_cpu"] <= DIFF_VALUE_RTOL
+            and out["grad_rel_vs_cpu"] <= DIFF_GRAD_RTOL,
+            f"diff {out['case']}: card vs CPU {out}")
+    require(out["grad_rel_vs_fd"] <= DIFF_FD_RTOL,
+            f"diff {out['case']}: gradient vs central differences {out}")
+    require(all(cold <= hot + 1e-9 for hot, cold in zip(errs, errs[1:]))
+            and errs[-1] <= 1e-3 * exact,
+            f"diff {out['case']}: anneal not monotone to 1e-3: {out}")
+    return out
+
+
+def _diff_optimize(torch, device, bound):
+    """Listing 2 at ``bound``: the ILP's smooth-LUT makespan, 300 Adam
+    steps on the card at float32, the result's exact and stepped
+    makespans, and the device launches of one forward+backward."""
+    import numpy as np
+
+    from repro_torch.core import homogeneous_cluster, listing2_graph
+    from repro_torch.core.batchsim import simulate_batch
+    from repro_torch.diff.optimize import (caps_from_theta,
+                                           evaluate_static_caps,
+                                           optimize_static_caps)
+    from repro_torch.diff.softsim import build_soft_arrays, soft_makespan
+
+    g, specs = listing2_graph(), homogeneous_cluster(3)
+    ilp = simulate_batch(g, specs, [bound], "ilp",
+                         smooth_lut=True)[0].makespan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt = optimize_static_caps(g, specs, bound, steps=DIFF_OPT_STEPS,
+                               device=device)
+    wall = time.perf_counter() - t0
+    stepped = evaluate_static_caps(opt.caps, g, specs, bound,
+                                   smooth_lut=False)
+    gap = (opt.exact_makespan - ilp) / ilp
+    soft = build_soft_arrays(g, specs, device=device)
+    floor = soft.table.cap_floor.to(torch.float32)
+    require(opt.caps.dtype == np.float32
+            and abs(float(opt.caps.sum()) - bound) <= 1e-6 * bound
+            and bool((opt.caps >= floor.cpu().numpy()).all()),
+            f"diff optimize {bound} W: caps {opt.caps.tolist()} off the "
+            f"simplex")
+    require(gap <= DIFF_ILP_GAP_MAX,
+            f"diff optimize {bound} W: {gap:+.2%} worse than the ILP "
+            f"({opt.exact_makespan} vs {ilp})")
+
+    def step():
+        theta = torch.zeros(3, device=device, requires_grad=True)
+        val = soft_makespan(caps_from_theta(theta, floor, bound), soft,
+                            DIFF_LADDER[-1])
+        torch.autograd.grad(val, theta)
+
+    step()
+    prof = _profile(torch, step)
+    return dict(bound_w=bound, ilp_makespan=ilp,
+                grad_makespan=opt.exact_makespan,
+                grad_makespan_stepped=stepped, gap=gap,
+                soft_makespan=opt.soft_makespan, caps=opt.caps.tolist(),
+                steps=DIFF_OPT_STEPS, wall_s=wall,
+                ms_per_step=1e3 * wall / DIFF_OPT_STEPS,
+                launches_per_step=prof["device_launches"],
+                step_wall_ms=1e3 * prof["wall_s"],
+                step_device_ms=1e3 * prof["device_s"],
+                step_device_busy_share=prof["device_busy_share"])
+
+
+def _diff_train(torch, device):
+    """``train_policy`` on the card at float32 over the full scenario set,
+    cut to ``DIFF_TRAIN_STEPS`` steps (one a temperature, so ``meta``
+    keeps every step's loss), against the same run on the CPU."""
+    from repro_torch.diff.train import train_policy, training_scenarios
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, meta = train_policy(seed=0, steps=DIFF_TRAIN_STEPS, verbose=False,
+                           device=device)
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    _, cpu_meta = train_policy(seed=0, steps=DIFF_TRAIN_STEPS,
+                               verbose=False, device="cpu")
+    cpu_wall = time.perf_counter() - t1
+    card, cpu = meta["loss_history"], cpu_meta["loss_history"]
+    rel = [abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(card, cpu)]
+    require(len(card) == len(cpu) == DIFF_TRAIN_STEPS
+            and max(rel) <= DIFF_TRAIN_RTOL
+            and [a[:2] for a in card] == [b[:2] for b in cpu],
+            f"diff train: card losses {card} vs CPU {cpu}")
+    return dict(scenarios=len(training_scenarios(0)),
+                steps=DIFF_TRAIN_STEPS,
+                reduced=f"20 scenarios x {DIFF_TRAIN_STEPS} steps, one a "
+                        f"temperature (the bundled checkpoint took 150)",
+                temperatures=[a[1] for a in card],
+                losses=[a[2] for a in card], wall_s=wall,
+                ms_per_step=1e3 * wall / DIFF_TRAIN_STEPS,
+                cpu_losses=[b[2] for b in cpu], loss_rel_vs_cpu=rel,
+                cpu_wall_s=cpu_wall)
+
+
+def _diff_learned_sweep(torch, launches, ckpt):
+    """``"learned"`` with the CLI's checkpoint through
+    ``SweepEngine(executor="torch")`` on Listing 2 and the held-out
+    layered family at three bounds each, against ``impl="plain"``."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.backends.policies import TorchLearned
+    from repro_torch.core import (Scenario, SweepEngine,
+                                  homogeneous_cluster, listing2_graph)
+    from repro_torch.core.scenarios import random_layered_family
+    from repro_torch.policies.learned import CHECKPOINT_ENV, load_checkpoint
+
+    l2, l2_specs = listing2_graph(), tuple(homogeneous_cluster(3))
+    cells = [Scenario(f"listing2-{b}", l2, l2_specs, b, "learned")
+             for b in DIFF_BOUNDS]
+    cells += random_layered_family(seed=77, n_members=4,
+                                   policies=("learned",),
+                                   bound_fracs=(0.3, 0.45, 0.6)).scenarios()
+    before = os.environ.get(CHECKPOINT_ENV)
+    os.environ[CHECKPOINT_ENV] = ckpt
+    try:
+        want = load_checkpoint(ckpt)
+        got = TorchLearned().params
+        require(all(np.array_equal(got[k], want[k]) for k in want),
+                "diff: the learned policy did not load the CLI's checkpoint")
+        for key in launches:
+            launches[key] = 0
+        t0 = time.perf_counter()
+        sweep = SweepEngine(executor="torch").run(cells)
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        plain = SweepEngine(executor="torch", impl="plain").run(cells)
+    finally:
+        if before is None:
+            os.environ.pop(CHECKPOINT_ENV, None)
+        else:
+            os.environ[CHECKPOINT_ENV] = before
+    for name, sw in (("kernel", sweep), ("plain", plain)):
+        require(not sw.failures and all(r.backend == "torch"
+                                        for r in sw.records),
+                f"diff sweep {name}: {sw.backend_summary()}")
+    require(counts["power_step"] > 0 and counts["wave_run"] == 0,
+            f"diff sweep: launches {counts}")
+    rel, diff = _compare_results([r.result for r in sweep.records],
+                                 [r.result for r in plain.records],
+                                 "diff learned sweep vs plain")
+    require(diff == 0.0, f"diff sweep: max abs diff {diff} vs impl='plain'")
+    return dict(cells=len(cells), launches=counts, wall_s=wall,
+                max_abs_diff_vs_plain=diff,
+                paths=sorted({b.path for b in sweep.profile.buckets}),
+                makespans=[r.result.makespan for r in sweep.records])
+
+
+def phase_diff(torch, device, launches, smi):
+    """The differentiable layer (``repro_torch.diff``) on the card: the
+    zoo against the CPU, central differences and the anneal (float64);
+    gradient-descended caps against the ILP at full width and the
+    trainer on the full scenario set (float32); then the trainer's CLI
+    in its own process and its checkpoint's ``"learned"`` sweep, with
+    the power_step launch counts set to 0 just before it."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="diff_")
+    ckpt = str(Path(tmp.name) / "ckpt.json")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t_cli = time.perf_counter()
+    # no --device on the card: the CLI's default is the card
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.diff.train", "--quick",
+         "--steps", "4", "--out", ckpt]
+        + ([] if device.type == "cuda" else ["--device", str(device)]),
+        cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        zoo = _diff_zoo()
+        checks = [_diff_checks(torch, device, *case) for case in zoo]
+        checks.append(_diff_checks(torch, device, *zoo[0], knots=[9.7]))
+        out, _ = cli.communicate(timeout=600)
+        cli_wall = time.perf_counter() - t_cli
+        require(cli.returncode == 0 and Path(ckpt).exists(),
+                f"diff CLI: exit {cli.returncode}\n{out}")
+        optimized = [_diff_optimize(torch, device, b) for b in DIFF_BOUNDS]
+        trained = _diff_train(torch, device)
+        learned = _diff_learned_sweep(torch, launches, ckpt)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        tmp.cleanup()
+    wall = time.perf_counter() - t_phase
+    emit("diff", nvidia_smi=smi, checks=checks)
+    for entry in optimized:
+        emit("diff_optimize", nvidia_smi=smi, **entry)
+    emit("diff_train", nvidia_smi=smi, **trained)
+    emit("diff_learned", nvidia_smi=smi, cli_wall_s=cli_wall,
+         cli_last_line=out.strip().splitlines()[-1], **learned,
+         phase_wall_s=wall)
+    return learned["launches"]
+
+
 # ------------------------------------------------------------ LM phases
 LLAMA = "llama3-8b"
 ZAMBA = "zamba2-2.7b"
@@ -2676,6 +3000,7 @@ def sim_phases(torch, device, counters, smi):
                                         solved)
     trace_corpus = phase_trace_corpus(torch, ps.LAUNCHES, smi)
     cluster = phase_cluster(torch, ps.LAUNCHES, smi)
+    diff = phase_diff(torch, device, ps.LAUNCHES, smi)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
     per_wave = ("the per-wave entry points run on the engine's \"step\" "
@@ -2711,10 +3036,12 @@ def sim_phases(torch, device, counters, smi):
          "launches_main": main_launches["power_step"],
          "launches_sweep_mixed": sweep_mixed["power_step"],
          "launches_service_mixed": service_mixed["power_step"],
-         "note": per_wave + "; launches_sweep_mixed and "
-                            "launches_service_mixed the learned "
-                            "policy's, in phases sweep_mixed and "
-                            "service_mixed",
+         "launches_diff": diff["power_step"],
+         "note": per_wave + "; launches_sweep_mixed, "
+                            "launches_service_mixed and launches_diff "
+                            "the learned policy's, in phases sweep_mixed, "
+                            "service_mixed and diff (a checkpoint the "
+                            "trainer's CLI wrote on the card)",
          "max_abs_err": worst["power_step"][0],
          "ms": times["power_step_ms"],
          "plain_ms": times["power_step_plain_ms"],

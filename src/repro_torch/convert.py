@@ -10,6 +10,10 @@ imported — and returns the port's counterpart:
 * a ``LUTTable``, ``GraphArrays`` or ``BatchArrays`` -> the port's numpy
   record of the same arrays;
 * a ``PowerAssignment`` -> the port's assignment;
+* a differentiable layer's ``SoftArrays`` (numpy leaves and a
+  ``LUTTable``) -> the port's :class:`~repro_torch.diff.softsim.SoftArrays`
+  on ``device`` (float64 and int64 tensors), and an ``OptResult`` -> the
+  port's :class:`~repro_torch.diff.optimize.OptResult`;
 * ``step_tables(...)`` output -> :class:`StepTables` tensors on
   ``device`` (the reference's stacked ``(B, 1, N)`` lane leaves become
   the port's ``(B, N)``);
@@ -40,6 +44,8 @@ from repro_torch.core.arrays import BatchArrays, GraphArrays
 from repro_torch.core.graph import Job, JobDependencyGraph
 from repro_torch.core.ilp import PowerAssignment
 from repro_torch.core.power import LUTTable, NodeSpec, PowerLUT, PowerState
+from repro_torch.diff.optimize import OptResult
+from repro_torch.diff.softsim import soft_arrays_from_numpy
 from repro_torch.kernels.power_step import StepTables
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, dtype_of
@@ -97,6 +103,18 @@ def from_reference(obj, device="cpu"):
             bounds_w=dict(obj.bounds_w), freqs_mhz=dict(obj.freqs_mhz),
             times=dict(obj.times), objective_t=float(obj.objective_t),
             status=str(obj.status))
+    if _has(obj, "settle_iters", "max_waves", "node_seq"):
+        return soft_arrays_from_numpy(
+            obj.work_pad, obj.rho_pad, obj.node_seq, obj.deps_pad,
+            obj.table, n_jobs=obj.n_jobs, n_nodes=obj.n_nodes,
+            max_waves=obj.max_waves, settle_iters=obj.settle_iters,
+            device=device)
+    if _has(obj, "exact_makespan", "soft_makespan", "history"):
+        return OptResult(
+            caps=np.array(obj.caps), soft_makespan=float(obj.soft_makespan),
+            exact_makespan=float(obj.exact_makespan),
+            history=[(int(s), float(t), float(v))
+                     for s, t, v in obj.history])
     if _has(obj, "row_job_ids", "node_seq"):
         return BatchArrays(
             row_job_ids=tuple(tuple(r) for r in obj.row_job_ids),

@@ -158,6 +158,7 @@ class BatchSimulator:
                  trace_every: Optional[float] = None,
                  max_steps: int = 1_000_000,
                  bound_schedules: Optional[Sequence] = None,
+                 smooth_lut: bool = False,
                  **policy_kwargs):
         graph.topological_order()          # validates the DAG
         self.graph = graph
@@ -167,7 +168,7 @@ class BatchSimulator:
         self.specs = list(specs)
         b = self._setup_run_params(bounds, policy, dt, latency_s,
                                    trace_every, max_steps, policy_kwargs,
-                                   bound_schedules)
+                                   bound_schedules, smooth_lut)
 
         # ---- static graph arrays, broadcast (zero-copy) over the rows
         arrays = build_graph_arrays(graph, self.specs)
@@ -197,6 +198,7 @@ class BatchSimulator:
                max_steps: int = 1_000_000,
                bound_schedules: Optional[Sequence] = None,
                pad_dims: Optional[Tuple[int, int, int, int, int]] = None,
+               smooth_lut: bool = False,
                **policy_kwargs) -> "BatchSimulator":
         """Build a mixed-shape batch: row ``b`` runs ``items[b]`` under
         ``bounds[b]`` (one (graph, specs) pair and one bound per row).
@@ -212,7 +214,8 @@ class BatchSimulator:
         self.specs = None
         self.job_ids = None
         self._setup_run_params(bounds, policy, dt, latency_s, trace_every,
-                               max_steps, policy_kwargs, bound_schedules)
+                               max_steps, policy_kwargs, bound_schedules,
+                               smooth_lut)
         arrays = stack_graph_arrays(items, pad_dims)
         self.arrays = arrays
         self._init_geometry(
@@ -226,9 +229,16 @@ class BatchSimulator:
 
     # ------------------------------------------------------- construction
     def _setup_run_params(self, bounds, policy, dt, latency_s, trace_every,
-                          max_steps, policy_kwargs, bound_schedules) -> int:
+                          max_steps, policy_kwargs, bound_schedules,
+                          smooth_lut: bool = False) -> int:
         if dt <= 0:
             raise ValueError("dt must be positive")
+        #: ``True`` translates caps through the piecewise-linear LUT
+        #: (``smooth=True`` of
+        #: :func:`~repro_torch.core.power.batched_operating_point`): the
+        #: exact trajectory that :mod:`repro_torch.diff`'s
+        #: ``soft_makespan`` converges to as the temperature goes to 0.
+        self.smooth_lut = bool(smooth_lut)
         self._bounds0 = np.asarray(list(bounds), dtype=float)
         if self._bounds0.ndim != 1 or len(self._bounds0) == 0:
             raise ValueError("bounds must be a non-empty 1-D sequence")
@@ -441,8 +451,8 @@ class BatchSimulator:
             if steps > self.max_steps:
                 raise RuntimeError(f"batch simulator exceeded max steps "
                                    f"({self.max_steps}); livelock?")
-            freq, duty, op_power = batched_operating_point(self.table,
-                                                           self.cap)
+            freq, duty, op_power = batched_operating_point(
+                self.table, self.cap, smooth=self.smooth_lut)
             rho = self.rho_pad[self._bidx[:, None], self._cur()]
             rate = np.where(self.running,
                             batched_rates(self.table, freq, duty, rho), 0.0)
@@ -554,9 +564,11 @@ def simulate_batch(graph: JobDependencyGraph, specs: Sequence[NodeSpec],
                    dt: float = 0.05, latency_s: float = 0.05,
                    trace_every: Optional[float] = None,
                    bound_schedules: Optional[Sequence] = None,
+                   smooth_lut: bool = False,
                    **policy_kwargs) -> List[SimResult]:
     """One-call facade: one :class:`SimResult` per entry of ``bounds``."""
     return BatchSimulator(graph, specs, bounds, policy=policy, dt=dt,
                           latency_s=latency_s, trace_every=trace_every,
                           bound_schedules=bound_schedules,
+                          smooth_lut=smooth_lut,
                           **policy_kwargs).run()

@@ -272,13 +272,25 @@ def lut_table(specs: Sequence[NodeSpec]) -> LUTTable:
 
 
 
-def batched_operating_point(table: LUTTable, caps_w: np.ndarray
+def batched_operating_point(table: LUTTable, caps_w: np.ndarray,
+                            smooth: bool = False
                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Vectorized :func:`operating_point`: caps ``(B, N)`` -> (freq, duty,
     power), each ``(B, N)``.  Elementwise-identical to the scalar
     translator, including the sub-``p_min`` duty states.  ``table`` holds
     one cluster shared by every row (``(N, S)`` state tables) or one per
-    row (``(B, N, S)`` from :func:`stack_lut_tables`)."""
+    row (``(B, N, S)`` from :func:`stack_lut_tables`).
+
+    ``smooth=True`` selects the piecewise-linear relaxation the
+    differentiable layer (:mod:`repro_torch.diff`) optimizes: frequency
+    interpolates linearly between adjacent LUT states and the draw is
+    ``clip(cap, duty-floor draw, p_max)``.  It agrees with the stepped
+    translator exactly at the state powers and in the duty region, and
+    clamps to the top state above ``p_max``.  The default ``smooth=False``
+    path is the stepped translator.
+    """
+    if smooth:
+        return _smooth_operating_point(table, caps_w)
     fits = table.state_p <= caps_w[..., None] + 1e-12
     idx = fits.sum(axis=-1) - 1            # highest fitting state, -1 if none
     has_state = idx >= 0
@@ -294,6 +306,46 @@ def batched_operating_point(table: LUTTable, caps_w: np.ndarray
                                                          caps_w.shape))
     duty = np.where(has_state, 1.0, q)
     power = np.where(has_state, power_fit, table.idle_w + q * table.span)
+    return freq, duty, power
+
+
+def _smooth_operating_point(table: LUTTable, caps_w: np.ndarray
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The ``smooth=True`` branch of :func:`batched_operating_point`.
+
+    The segment index comes from the stepped path's hard gather; the
+    gradient of :func:`repro_torch.diff.relax.smooth_operating_point`, its
+    torch mirror, flows through the interpolated values only.
+    """
+    fits = table.state_p <= caps_w[..., None] + 1e-12
+    idx = fits.sum(axis=-1) - 1            # segment lower knot, -1 if none
+    has_state = idx >= 0
+    idx_c = np.maximum(idx, 0)[..., None]
+    shape = caps_w.shape + (table.state_p.shape[-1],)
+    sp = np.broadcast_to(table.state_p, shape)
+    sf = np.broadcast_to(table.state_f, shape)
+    p_lo = np.take_along_axis(sp, idx_c, -1)[..., 0]
+    f_lo = np.take_along_axis(sf, idx_c, -1)[..., 0]
+    idx_n = np.minimum(idx_c + 1, shape[-1] - 1)
+    p_hi = np.take_along_axis(sp, idx_n, -1)[..., 0]
+    f_hi = np.take_along_axis(sf, idx_n, -1)[..., 0]
+    # Segment fraction: +inf-padded upper knots (and the top state, whose
+    # "next" slot is itself) give t = 0, i.e. a flat clamp at the edge.
+    denom = p_hi - p_lo
+    with np.errstate(invalid="ignore", divide="ignore"):
+        t = np.where(denom > 0, (caps_w - p_lo) / denom, 0.0)
+    t = np.clip(np.where(np.isfinite(t), t, 0.0), 0.0, 1.0)
+    freq_fit = f_lo + t * (f_hi - f_lo)
+    q = (caps_w - table.idle_w) / table.span
+    q = np.clip(q, DUTY_FLOOR, 1.0)
+    freq = np.where(has_state, freq_fit, np.broadcast_to(table.f_min,
+                                                         caps_w.shape))
+    duty = np.where(has_state, 1.0, q)
+    floor_draw = table.idle_w + q * table.span
+    power = np.where(has_state,
+                     np.minimum(caps_w, np.broadcast_to(table.p_max,
+                                                        caps_w.shape)),
+                     floor_draw)
     return freq, duty, power
 
 

@@ -30,7 +30,7 @@ from .online_heuristic import OnlineHeuristicPolicy  # noqa: F401,E402
 from .oracle import OraclePolicy  # noqa: F401,E402
 from .vector import (VectorEqualShare, VectorIlpStatic,  # noqa: F401,E402
                      VectorOnlineHeuristic, VectorOracle, VectorPolicy,
-                     get_vector_policy, has_vector_policy,
+                     VectorStaticCaps, get_vector_policy, has_vector_policy,
                      register_vector_policy, vector_policies)
 
 __all__ = [
@@ -40,6 +40,6 @@ __all__ = [
     "IlpStaticPolicy", "LearnedPolicy", "OnlineHeuristicPolicy",
     "OraclePolicy", "VectorEqualShare", "VectorIlpStatic",
     "VectorLearned", "VectorOnlineHeuristic", "VectorOracle",
-    "VectorPolicy", "get_vector_policy", "has_vector_policy",
+    "VectorPolicy", "VectorStaticCaps", "get_vector_policy", "has_vector_policy",
     "register_vector_policy", "vector_policies",
 ]

@@ -200,6 +200,45 @@ def batched_waterfill(running: np.ndarray, budget: np.ndarray,
     return caps
 
 
+class VectorStaticCaps(VectorPolicy):
+    """Externally supplied caps, held fixed: the *exact* evaluation seam
+    for :mod:`repro_torch.diff.optimize`.  Gradient-descend a cap vector
+    through the soft simulator, then measure its true makespan here.
+
+    Deliberately *not* in the registry: it is unconstructible without a
+    cap vector (the registry contract is kwargless construction).  Pass
+    an instance straight to ``simulate_batch(policy=...)``.
+
+    ``caps`` is ``(N,)`` (shared by every row) or ``(B, N)``.  A
+    piecewise-constant cap *schedule* is evaluated by pairing this policy
+    with a constant-bound ``bound_schedules`` entry per knot and swapping
+    ``caps_schedule[k]`` in at the k-th arrival (``on_bound_change``),
+    which forces a wave boundary at each knot time.
+    """
+
+    name = "static-caps"
+
+    def __init__(self, caps=None, caps_schedule=None):
+        if caps is None and caps_schedule is None:
+            raise ValueError("static-caps needs caps= or caps_schedule=")
+        self.caps = None if caps is None else np.asarray(caps, dtype=float)
+        self.caps_schedule = (None if caps_schedule is None else
+                              np.asarray(caps_schedule, dtype=float))
+        self._knot: Optional[np.ndarray] = None    # (B,) next schedule row
+
+    def setup(self, sim) -> np.ndarray:
+        first = self.caps if self.caps is not None else self.caps_schedule[0]
+        self._knot = np.zeros(sim.n_rows, dtype=np.int64)
+        return np.broadcast_to(first, (sim.n_rows, sim.n_nodes)).copy()
+
+    def on_bound_change(self, sim, rows) -> None:
+        if self.caps_schedule is None:
+            return                      # truly static: ignore bound moves
+        self._knot[rows] = np.minimum(self._knot[rows] + 1,
+                                      len(self.caps_schedule) - 1)
+        sim.cap[rows] = self.caps_schedule[self._knot[rows]]
+
+
 @register_vector_policy("oracle")
 class VectorOracle(VectorPolicy):
     """Zero-latency clairvoyant water-filling, batched.

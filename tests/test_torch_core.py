@@ -216,7 +216,10 @@ named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
          "repro_torch.traces.__main__", "repro_torch.cluster",
          "repro_torch.cluster.arrivals", "repro_torch.cluster.policies",
          "repro_torch.cluster.scheduler", "repro_torch.cluster.metrics",
-         "repro_torch.cluster.cli", "repro_torch.cluster.__main__"}}
+         "repro_torch.cluster.cli", "repro_torch.cluster.__main__",
+         "repro_torch.diff", "repro_torch.diff.relax",
+         "repro_torch.diff.softsim", "repro_torch.diff.optimize",
+         "repro_torch.diff.train", "repro_torch.diff.__main__"}}
 assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe
@@ -231,7 +234,8 @@ assert not bad, bad
 
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
-    (the LM path's and the sweep front end's among them),
+    (the LM path's, the sweep front end's and the differentiable
+    layer's among them),
     ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py`` and
     ``rmsnorm_probe.py`` loads no
     ``jax`` and no ``repro``."""

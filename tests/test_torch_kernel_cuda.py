@@ -750,3 +750,28 @@ def test_service_on_the_card_matches_the_sweep_engine(cuda_device):
     assert got["wave_run"] == n_cuda > 0 and got["power_step"] > 0
     assert records[-1].fallback_reason == "lanes(300>256)"
     assert {b.rows for b in prof.buckets} == {16}
+
+
+def test_soft_makespan_on_the_card_matches_the_cpu(cuda_device):
+    """The differentiable layer's soft makespan and its gradient on the
+    card against the same float64 run on the CPU (listing2, static caps
+    and a two-row schedule)."""
+    from repro_torch.diff.softsim import build_soft_arrays, soft_makespan
+
+    graph, specs = listing2_graph(), homogeneous_cluster(3)
+    tab = lut_table(specs)
+    caps = tab.cap_floor + np.array([0.5, 0.6, 0.4]) * (tab.p_max
+                                                          - tab.cap_floor)
+    for value, knots in ((caps, None),
+                         (np.stack([caps, caps[::-1].copy()]), [7.3])):
+        out = {}
+        for dev in ("cpu", cuda_device):
+            soft = build_soft_arrays(graph, specs, device=dev)
+            x = torch.tensor(value, dtype=torch.float64, device=dev,
+                             requires_grad=True)
+            val = soft_makespan(x, soft, 0.1, knot_times=knots)
+            (g,) = torch.autograd.grad(val, x)
+            out[str(dev)] = (float(val.detach()), g.cpu().numpy())
+        (v_cpu, g_cpu), (v_gpu, g_gpu) = out["cpu"], out["cuda"]
+        assert v_gpu == pytest.approx(v_cpu, rel=1e-9)
+        assert np.linalg.norm(g_gpu - g_cpu) <= 1e-7 * np.linalg.norm(g_cpu)
