@@ -52,7 +52,17 @@ port's two paths:
   weights from a seed, through the same two entry points after
   llama3-8b's weights are freed (``rmsnorm``, ``ssm_scan`` on the SSD
   core of every Mamba2 layer's prefill, ``flash_attention`` at dh=80 on
-  its SIMT kernel, which keeps the prefill bit-equal to the plain path).
+  its SIMT kernel, which keeps the prefill bit-equal to the plain path);
+* the other four model families at full width, each after the last
+  one's weights are freed, through the same two entry points (8
+  requests of 128 prompt and 32 new tokens; prefill at S=4096):
+  moonshot-v1-16b-a3b (MoE, 64 experts top-6, full depth, 56 GB),
+  arctic-480b (128 experts top-2 and the dense residual FFN, depth cut
+  to 1 layer), xlstm-350m (mLSTM and sLSTM, full depth),
+  chameleon-34b (VLM, depth cut to 8 layers) and hubert-xlarge
+  (encoder: prefill on frames, non-causal ``flash_attention`` at dh=80;
+  no decode), with the MoE's dropped share and its routing agreement
+  between the kernel and the plain path.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; then a ``kernels`` line, the
@@ -100,7 +110,11 @@ LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: or the plain loop itself at another kv tile) moves the full-width
 #: prefill logits by the model's bf16 rounding floor: 1.8% for llama3-8b,
 #: 3.3% for zamba2-2.7b (``flash_probe.py`` on an H100), so zamba2's
-#: prefill keeps the bit-equal SIMT flash kernel.
+#: prefill keeps the bit-equal SIMT flash kernel.  A MoE prefill with
+#: random weights routes near-ties everywhere: a flash rounding flips an
+#: expert choice, and with capacity drops the flip moves later tokens'
+#: slots, so its logits are held at this bar with the plain path handed
+#: the kernel path's routing (:func:`phase_prefill_full_width`).
 MODEL_REL_TOL = 2e-2
 #: ssm_scan kernel vs plain (rtol and atol): the same fp32 arithmetic in
 #: the same order, bf16 inputs read as fp32 exactly; only exp may differ
@@ -2353,10 +2367,39 @@ FLASH_ZAMBA = (1, 32, 32, PREFILL_SEQ, 80)
 #: zamba2's SSD core at the prefill: (B, H, S, P, N) and the SSD chunk
 SSM_MAIN = (1, 80, PREFILL_SEQ, 64, 64)
 SSM_CHUNK = 128
+#: The other families' full-width paths: (arch, phase tag, depth kept or
+#: None for full depth, serve-phase name, prefill-phase name).  arctic
+#: at 35 layers is 478.6 B parameters and chameleon at 48 68.6 GB, so
+#: each keeps the depth that fits the card beside the plain check.
+MOONSHOT, ARCTIC = "moonshot-v1-16b-a3b", "arctic-480b"
+XLSTM, CHAMELEON, HUBERT = "xlstm-350m", "chameleon-34b", "hubert-xlarge"
+FAMILY_RUNS = (
+    (MOONSHOT, "moe", None, "serve_full_width_moe", "prefill_full_width_moe"),
+    (ARCTIC, "arctic", 1, "serve_arctic", "prefill_arctic"),
+    (XLSTM, "xlstm", None, "serve_full_width_xlstm",
+     "prefill_full_width_xlstm"),
+    (CHAMELEON, "chameleon", 8, "serve_chameleon", "prefill_chameleon"),
+    (HUBERT, "encoder", None, None, "prefill_full_width_encoder"))
+#: Their serve phases' prompt and new tokens (llama and zamba2 keep
+#: 512 and 64).
+FAMILY_PROMPT, FAMILY_NEW = 128, 32
+#: Their prefills' attention, (B, H, Hkv, S, dh): GQA groups 1, 7 and 8
+#: on the tensor-core kernel, causal; hubert's dh 80 on the SIMT kernel,
+#: non-causal.
+FLASH_FAMILIES = {"moe": ((1, 16, 16, PREFILL_SEQ, 128), True),
+                  "arctic": ((1, 56, 8, PREFILL_SEQ, 128), True),
+                  "chameleon": ((1, 64, 8, PREFILL_SEQ, 128), True),
+                  "encoder": ((1, 16, 16, PREFILL_SEQ, 80), False)}
+#: Widths of their norms: d_model of each, the mLSTM cell's d_in.
+RMSNORM_FAMILY_WIDTHS = (1024, 1280, 2048, 7168, 8192)
 
 
 def _max_abs(torch, got, want) -> float:
-    return float((got.float() - want.float()).abs().max())
+    """Largest elementwise distance, over blocks of rows."""
+    g = got.reshape(-1, got.shape[-1])
+    w = want.reshape(-1, want.shape[-1])
+    return max(float((g[i:i + 512].float() - w[i:i + 512].float())
+                     .abs().max()) for i in range(0, g.shape[0], 512))
 
 
 def _within(torch, got, want, dtype) -> bool:
@@ -2366,16 +2409,25 @@ def _within(torch, got, want, dtype) -> bool:
 
 
 def _rel_err(torch, got, want) -> float:
-    """Normwise relative error of ``got`` against ``want``."""
-    g, w = got.double(), want.double()
-    return float((g - w).norm() / w.norm())
+    """Normwise relative error of ``got`` against ``want``, the squares
+    summed in float64 over blocks of rows (a 4096 x 163,840 logits
+    tensor needs no float64 copy of the whole)."""
+    g = got.reshape(-1, got.shape[-1])
+    w = want.reshape(-1, want.shape[-1])
+    num = den = 0.0
+    for i in range(0, g.shape[0], 512):
+        gi, wi = g[i:i + 512].double(), w[i:i + 512].double()
+        num += float(((gi - wi) ** 2).sum())
+        den += float((wi ** 2).sum())
+    return math.sqrt(num / den)
 
 
 def phase_rmsnorm_kernel(torch, device):
     """rmsnorm kernel vs plain at llama3-8b's shapes (decode 8 x 4096 and
     prefill 4096 x 4096 rows) and a ragged row count, bf16 and fp32,
     both rounding forms, and at zamba2-2.7b's (8 and 4096 rows of 2560,
-    and of 5120 for the gated norm; bf16, the layer's form); then the
+    and of 5120 for the gated norm; bf16, the layer's form) and the other
+    families' widths (:data:`RMSNORM_FAMILY_WIDTHS`); then the
     rows the vector path does not take (d = 1001, an x one element off
     its 16-byte alignment, a row of 20,000).  Every case must equal the
     plain version bit for bit.  Times (device, host-included call, and
@@ -2391,7 +2443,8 @@ def phase_rmsnorm_kernel(torch, device):
     shapes = [(rows, 4096, dtype, (True, False)) for rows in (8, 4096, 1001)
               for dtype in ("bfloat16", "float32")]
     shapes += [(rows, d, "bfloat16", (True,))
-               for rows in (SERVE_BATCH, PREFILL_SEQ) for d in (2560, 5120)]
+               for rows in (SERVE_BATCH, PREFILL_SEQ)
+               for d in (2560, 5120) + RMSNORM_FAMILY_WIDTHS]
     # the strided kernel: a width that is no multiple of 16 bytes, an x
     # off its alignment (offset 1), more chunks a thread than registers hold
     shapes += [(SERVE_BATCH, d, dtype, (True, False), offset)
@@ -2468,7 +2521,9 @@ def phase_flash_kernel(torch, device):
     H=32, Hkv=8, S=4096, dh=128, bf16, causal), zamba2-2.7b's (H=Hkv=32,
     dh=80) and small ones (MHA, fp32, full, window), and the tensor-core
     kernel's edges (a half-empty last query tile, a half-full last kv
-    tile, dh=80 full and windowed, dh=64).  Each case runs the variant
+    tile, dh=80 full and windowed, dh=64), and the other families'
+    prefill shapes (:data:`FLASH_FAMILIES`: GQA groups 7 and 8, and
+    hubert's non-causal dh=80).  Each case runs the variant
     ``kernel_variant`` names (the table's, or the one a case forces: the
     tensor-core kernel at dh=80, which zamba2's path does not take), read
     back from the launch counters.  Times at both prefill shapes for both
@@ -2489,6 +2544,8 @@ def phase_flash_kernel(torch, device):
              (FLASH_ZAMBA, "bfloat16", True, 0, "tc"),
              ((1, 4, 1, 320, 80), "bfloat16", False, 0, "tc"),
              ((1, 4, 2, 1024, 80), "bfloat16", True, 200, "tc")]
+    cases += [(shape, "bfloat16", causal, 0, None)
+              for shape, causal in FLASH_FAMILIES.values()]
     worst, variants = {}, {}
     inputs = {}
     for (b, h, hkv, s, dh), dtype, causal, window, force in cases:
@@ -2514,14 +2571,19 @@ def phase_flash_kernel(torch, device):
                 f"flash {name}: kernel vs plain max abs err {err:.3g}")
         worst[name] = err
         variants[name] = variant
-        if (b, h, hkv, s, dh) in (FLASH_MAIN, FLASH_ZAMBA):
+        if (b, h, hkv, s, dh) in (FLASH_MAIN, FLASH_ZAMBA) or \
+                ((b, h, hkv, s, dh), causal) in FLASH_FAMILIES.values():
             inputs[(b, h, hkv, s, dh)] = (q, k, v)
     torch.cuda.synchronize()
     times = _flash_times(torch, FLASH_MAIN, *inputs.pop(FLASH_MAIN))
     zamba = _flash_times(torch, FLASH_ZAMBA, *inputs.pop(FLASH_ZAMBA))
+    families = {tag: _flash_routed_times(torch, shape, causal,
+                                         *inputs.pop(shape))
+                for tag, (shape, causal) in FLASH_FAMILIES.items()}
     emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, variants=variants,
-         shape=FLASH_MAIN, **times, shape_zamba2=FLASH_ZAMBA, zamba2=zamba)
-    return max(worst.values()), times, zamba
+         shape=FLASH_MAIN, **times, shape_zamba2=FLASH_ZAMBA, zamba2=zamba,
+         families=families)
+    return max(worst.values()), times, zamba, families
 
 
 def _flash_times(torch, shape, q, k, v):
@@ -2554,6 +2616,30 @@ def _flash_times(torch, shape, q, k, v):
     times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
     times["tflops"] = flops / (times["ms"] * 1e9)
     times["tc_tflops"] = flops / (times["tc_ms"] * 1e9)
+    return times
+
+
+def _flash_routed_times(torch, shape, causal, q, k, v):
+    """Device ms at one shape of the kernel the table routes it to, the
+    plain version and SDPA, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, hkv, s, dh = shape
+    calls = {"ms": lambda: fa.flash_attention(q, k, v, causal=causal),
+             "plain_ms": lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                    impl="plain"),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=causal, enable_gqa=True)}
+    times = {key: device_ms(torch, fn, 3 if key == "plain_ms" else 10)
+             for key, fn in calls.items()}
+    times["variant"] = fa.kernel_variant(q.dtype, dh)
+    times["causal"] = causal
+    flops = 4 * b * h * dh * _causal_pairs(s, causal, 0)
+    nbytes = 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
+    times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
+    times["tflops"] = flops / (times["ms"] * 1e9)
     return times
 
 
@@ -2671,16 +2757,66 @@ def _random_params(torch, device, cfg):
     return cfg, params, n, time.perf_counter() - t0
 
 
+#: Each family's full-width config as the repo ships it (the fields the
+#: phases check before they cut depth).
+FAMILY_WIDTHS = {
+    MOONSHOT: {"family": "moe", "n_layers": 48, "d_model": 2048,
+               "n_heads": 16, "n_kv_heads": 16, "d_ff": 1408,
+               "vocab": 163840,
+               "moe": {"n_experts": 64, "top_k": 6, "capacity_factor": 1.25,
+                       "dense_residual_ff": 0}},
+    ARCTIC: {"family": "moe", "n_layers": 35, "d_model": 7168,
+             "n_heads": 56, "n_kv_heads": 8, "d_ff": 4864, "vocab": 32000,
+             "moe": {"n_experts": 128, "top_k": 2, "capacity_factor": 1.25,
+                     "dense_residual_ff": 4864}},
+    XLSTM: {"family": "ssm", "n_layers": 24, "d_model": 1024, "n_heads": 4,
+            "n_kv_heads": 4, "d_ff": 0, "vocab": 50304,
+            "xlstm": {"slstm_every": 8, "mlstm_proj_factor": 2.0,
+                      "slstm_proj_factor": 4.0 / 3.0, "conv_width": 4}},
+    CHAMELEON: {"family": "vlm", "n_layers": 48, "d_model": 8192,
+                "n_heads": 64, "n_kv_heads": 8, "d_ff": 22016,
+                "vocab": 65536},
+    HUBERT: {"family": "encoder", "n_layers": 48, "d_model": 1280,
+             "n_heads": 16, "n_kv_heads": 16, "d_ff": 5120, "vocab": 504,
+             "causal": False, "mlp": "gelu"},
+}
+
+
+def _family_params(torch, device, arch, layers):
+    """``arch``'s shipped config, checked at full width, its depth cut to
+    ``layers`` where given; random weights on the card.  Returns (cfg,
+    params, parameter count, init s, the cut as ``{"n_layers": [full,
+    kept]}`` or {})."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    fields = dataclasses.asdict(cfg)
+    want = FAMILY_WIDTHS[arch]
+    require({k: fields[k] for k in want} == want
+            and cfg.dtype == cfg.param_dtype == "bfloat16",
+            f"{arch} is not at full width")
+    reduced = {}
+    if layers is not None:
+        reduced = {"n_layers": [cfg.n_layers, layers]}
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return (*_random_params(torch, device, cfg), reduced)
+
+
 def expected_launches(cfg) -> dict:
     """Kernel launches of one decode step (rmsnorm) and one prefill at
     S >= 2048 (all three) of ``cfg``'s model: 2 L + 1 rmsnorm and L flash
-    for the dense family; for the hybrid family 2 L + 2 n_super + 1
-    rmsnorm (every Mamba2 layer's ln and gated norm, the shared block's two
-    norms per application, the final norm), L ssm_scan and n_super flash.
-    Every flash launch runs the kernel ``kernel_variant`` routes the
-    model's (dtype, dh) to: all of them on the tensor-core kernel
-    (``flash_attention_tc``) for llama3-8b (bf16, dh 128), none for
-    zamba2-2.7b (bf16, dh 80)."""
+    for the dense, vlm, moe and encoder families; for the hybrid family
+    2 L + 2 n_super + 1 rmsnorm (every Mamba2 layer's ln and gated norm,
+    the shared block's two norms per application, the final norm), L
+    ssm_scan and n_super flash; for the ssm family (xLSTM) 2 L + 1
+    rmsnorm (each block's ln and its cell's output norm, the final norm)
+    and no flash.  Every flash launch runs the kernel ``kernel_variant``
+    routes the model's (dtype, dh) to: all of them on the tensor-core
+    kernel (``flash_attention_tc``) at bf16 dh 128 (llama3-8b,
+    moonshot, arctic, chameleon), none at bf16 dh 80 (zamba2-2.7b,
+    hubert-xlarge)."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel_variant
@@ -2691,7 +2827,8 @@ def expected_launches(cfg) -> dict:
                 "ssm_scan": cfg.n_layers, "flash_attention": n_super}
     else:
         want = {"rmsnorm": 2 * cfg.n_layers + 1, "ssm_scan": 0,
-                "flash_attention": cfg.n_layers}
+                "flash_attention": 0 if cfg.family == "ssm"
+                else cfg.n_layers}
     tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
     want["flash_attention_tc"] = want["flash_attention"] if tc else 0
     return want
@@ -2735,31 +2872,122 @@ def _zero(counters):
             c[key] = 0
 
 
+class _RouteLog:
+    """While entered, keeps every MoE layer's ``Routing`` in call order
+    (``repro_torch.models.moe.route`` wrapped, the model's arithmetic
+    untouched).  With ``replay`` (another log's routings), each layer is
+    handed the replayed routing in place of its own: the experts, slots,
+    keep flags and gate weights of that run."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.real, self.layers = moe, moe.route, []
+
+        def logged(*args, **kw):
+            r = (self.real(*args, **kw) if self.replay is None
+                 else self.replay[len(self.layers)])
+            self.layers.append(r)
+            return r
+
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.real
+        return False
+
+
+def _routing_stats(torch, got: list, want: list) -> dict:
+    """Dropped share of (token, choice) pairs on the kernel path, the
+    share whose expert differs between the kernel and the plain path
+    (``got`` and ``want``: the two paths' :class:`_RouteLog` layers), and
+    the share of tokens with a choice whose expert or keep flag differs
+    in some layer (a flip moves the capacity ranks of the expert's later
+    tokens)."""
+    require(len(got) == len(want) > 0,
+            "MoE routing not logged on both paths")
+    pairs = dropped = differs = 0
+    flipped = None
+    for r, w in zip(got, want):
+        pairs += r.keep.numel()
+        dropped += int((~r.keep).sum())
+        diff = r.gate_idx != w.gate_idx
+        differs += int(diff.sum())
+        tok = (diff | (r.keep != w.keep)).any(-1)
+        flipped = tok if flipped is None else flipped | tok
+    return {"pairs": pairs, "dropped_share": dropped / pairs,
+            "expert_differs_share": differs / pairs,
+            "tokens_flipped_share": float(flipped.float().mean())}
+
+
+def _moe_block_checks(torch, cfg, params, tokens, device):
+    """Each block of a MoE model at the prefill, the kernel path against
+    the plain block fed the same input (the kernel path's output of the
+    block before): the normwise error of the block's output with each
+    path routing for itself (``block_rel_err``) and with the plain block
+    handed the kernel block's routing (``block_rel_err_pinned``), and the
+    share of (token, choice) pairs whose expert differs."""
+    from repro_torch.models import model as lm
+
+    free, pinned, flips = [], [], []
+    with torch.inference_mode():
+        x = lm.embed_inputs(cfg, params, {"tokens": torch.as_tensor(
+            tokens, dtype=torch.int64, device=device)})
+        b, s = x.shape[:2]
+        pos = torch.arange(s, device=device).expand(b, s)
+        for blk in params.blocks:
+            with _RouteLog() as got_log:
+                got, _ = lm.attn_block(cfg, blk, x, pos, cfg.causal, None)
+            with _RouteLog() as want_log:
+                want, _ = lm.attn_block(cfg, blk, x, pos, cfg.causal,
+                                        "plain")
+            free.append(_rel_err(torch, got, want))
+            flips.append(_routing_stats(torch, got_log.layers,
+                                        want_log.layers)
+                         ["expert_differs_share"])
+            with _RouteLog(replay=got_log.layers):
+                want, _ = lm.attn_block(cfg, blk, x, pos, cfg.causal,
+                                        "plain")
+            pinned.append(_rel_err(torch, got, want))
+            x = got
+    return {"block_rel_err_max": max(free),
+            "block_rel_err_pinned_max": max(pinned),
+            "block_rel_err": free, "block_rel_err_pinned": pinned,
+            "block_expert_differs_share": flips}
+
+
 def phase_serve_full_width(torch, device, counters, model,
-                           phase="serve_full_width"):
-    """ServeEngine.generate on 8 requests (prompt 512, 64 new tokens,
-    greedy) with the model at full width; the first decode steps' logits
-    against the same engine at impl="plain"."""
+                           phase="serve_full_width", prompt=SERVE_PROMPT,
+                           new=SERVE_NEW, reduced=None):
+    """ServeEngine.generate on 8 requests (``prompt`` tokens, ``new``
+    new ones, greedy) with the model at full width (``reduced`` lists a
+    depth cut); the first decode steps' logits against the same engine at
+    impl="plain" (for the MoE, with the routing of both)."""
     import numpy as np
 
     from repro_torch.models import init_cache
     from repro_torch.serving.engine import ServeEngine
 
+    t_phase = time.perf_counter()
     cfg, params = model
     rng = np.random.default_rng(0)
-    prompts = rng.integers(2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+    prompts = rng.integers(2, cfg.vocab, (SERVE_BATCH, prompt),
                            dtype=np.int32)
-    max_seq = SERVE_PROMPT + SERVE_NEW
+    max_seq = prompt + new
     engine = ServeEngine(cfg, params, max_seq=max_seq, max_batch=SERVE_BATCH)
     engine.generate(prompts[:, :4], 2)                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
     t0 = time.perf_counter()
-    res = engine.generate(prompts, SERVE_NEW)
+    res = engine.generate(prompts, new)
     wall = time.perf_counter() - t0
     launches = _launches()
-    steps = SERVE_PROMPT + SERVE_NEW - 1
+    steps = prompt + new - 1
     want = expected_launches(cfg)["rmsnorm"] * steps
     require(launches["rmsnorm"] == want,
             f"{phase}: rmsnorm launches {launches['rmsnorm']} != {want}")
@@ -2767,18 +2995,19 @@ def phase_serve_full_width(torch, device, counters, model,
             == launches["ssm_scan"] == 0,
             f"{phase}: decode runs no flash attention and no ssm_scan")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(res.new_tokens.shape == (SERVE_BATCH, SERVE_NEW)
+    require(res.new_tokens.shape == (SERVE_BATCH, new)
             and bool(((res.new_tokens >= 0)
                       & (res.new_tokens < cfg.vocab)).all()),
             f"{phase}: tokens out of range")
+    moe = cfg.family == "moe"
     with torch.inference_mode():
         # 8 decode steps at the end of the prompt, under the profiler (the
-        # attention reads the whole 576-slot cache whatever it holds)
+        # attention reads the whole cache whatever it holds)
         cache = init_cache(cfg, SERVE_BATCH, max_seq, device)
         tok = torch.as_tensor(res.new_tokens[:, :1], device=device,
                               dtype=torch.int64)
         prof = _profile(torch, lambda: [engine.decode(
-            cache, tok, SERVE_PROMPT + i) for i in range(8)])
+            cache, tok, prompt + i) for i in range(8)])
         prof["device_launches_per_step"] = prof["device_launches"] / 8
         del cache
         # kernel vs plain: the first 8 decode steps from an empty cache
@@ -2788,10 +3017,14 @@ def phase_serve_full_width(torch, device, counters, model,
                   for _ in range(2)]
         toks = torch.as_tensor(prompts, device=device, dtype=torch.int64)
         rel = abs_err = 0.0
-        agree = []
+        agree, got_layers, want_layers = [], [], []
         for i in range(8):
-            got = engine.decode(caches[0], toks[:, i:i + 1], i)
-            ref = plain.decode(caches[1], toks[:, i:i + 1], i)
+            with _RouteLog() as log:
+                got = engine.decode(caches[0], toks[:, i:i + 1], i)
+            got_layers += log.layers
+            with _RouteLog() as log:
+                ref = plain.decode(caches[1], toks[:, i:i + 1], i)
+            want_layers += log.layers
             require(bool(torch.isfinite(got).all()),
                     f"{phase}: non-finite logits")
             rel = max(rel, _rel_err(torch, got, ref))
@@ -2799,44 +3032,68 @@ def phase_serve_full_width(torch, device, counters, model,
             agree.append(float((got.argmax(-1) == ref.argmax(-1))
                                .float().mean()))
         del caches
+        routing = {}
+        if moe:
+            routing = _routing_stats(torch, got_layers, want_layers)
     require(rel <= MODEL_REL_TOL,
             f"{phase}: logits kernel vs plain normwise rel err {rel:.3g}")
-    emit(phase, arch=cfg.arch_id, batch=SERVE_BATCH,
-         prompt=SERVE_PROMPT, new=SERVE_NEW, wall_s=wall,
+    emit(phase, arch=cfg.arch_id, reduced=reduced or {}, batch=SERVE_BATCH,
+         prompt=prompt, new=new, wall_s=wall,
          prefill_s=res.prefill_s, prefill_tokens_per_s=SERVE_BATCH
-         * SERVE_PROMPT / res.prefill_s,
-         prefill_ms_per_step=1e3 * res.prefill_s / SERVE_PROMPT,
+         * prompt / res.prefill_s,
+         prefill_ms_per_step=1e3 * res.prefill_s / prompt,
          decode_s=res.decode_s,
-         decode_tokens_per_s=SERVE_BATCH * (SERVE_NEW - 1) / res.decode_s,
-         decode_ms_per_step=1e3 * res.decode_s / (SERVE_NEW - 1),
+         decode_tokens_per_s=SERVE_BATCH * (new - 1) / res.decode_s,
+         decode_ms_per_step=1e3 * res.decode_s / (new - 1),
          peak_memory_gb=peak_gb, launches=launches, expected_rmsnorm=want,
          logits_rel_err_vs_plain=rel, logits_max_abs_err_vs_plain=abs_err,
          argmax_agreement_vs_plain=min(agree), rel_tol=MODEL_REL_TOL,
+         **({"routing_8_steps": routing} if moe else {}),
          first_tokens=res.new_tokens[0, :8].tolist(),
-         decode_profile_8_steps=prof)
+         decode_profile_8_steps=prof,
+         phase_wall_s=time.perf_counter() - t_phase)
     return launches
 
 
 def phase_prefill_full_width(torch, device, counters, model,
-                             phase="prefill_full_width"):
-    """make_prefill_step at B=1, S=4096: the launches of
-    :func:`expected_launches`; logits against impl="plain"."""
+                             phase="prefill_full_width", warm=2048,
+                             profile=True, reduced=None):
+    """make_prefill_step at B=1, S=4096 (tokens; frames ``(1, S, d)`` for
+    the encoder) after a warm-up at ``warm``: the launches of
+    :func:`expected_launches`; logits against impl="plain".  For the MoE,
+    the dropped share and the routing of both paths, and the logits
+    against the plain path handed the kernel path's routing (every
+    layer's experts, slots, keep flags and weights).  Where the routing
+    flips take the free logits past :data:`MODEL_REL_TOL`, those pinned
+    logits are held at that bar, and so is every block against the plain
+    block fed the same input and the same routing
+    (:func:`_moe_block_checks`).  ``profile=False`` leaves
+    out the profiled run (xLSTM's prefill is ~10^5 launches)."""
     import numpy as np
 
     from repro_torch.launch.steps import make_prefill_step
 
+    t_phase = time.perf_counter()
     cfg, params = model
-    tokens = np.random.default_rng(1).integers(2, cfg.vocab,
-                                               (1, PREFILL_SEQ))
+    rng = np.random.default_rng(1)
+    if cfg.family == "encoder":
+        inputs = {"frames": rng.standard_normal(
+            (1, PREFILL_SEQ, cfg.d_model), dtype=np.float32)}
+        warm_inputs = {"frames": inputs["frames"][:, :warm]}
+    else:
+        inputs = {"tokens": rng.integers(2, cfg.vocab, (1, PREFILL_SEQ))}
+        warm_inputs = {"tokens": inputs["tokens"][:, :warm]}
     step = make_prefill_step(cfg)
-    step(params, {"tokens": tokens[:, :2048]})          # warm-up
+    step(params, warm_inputs)                           # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
-    t0 = time.perf_counter()
-    logits = step(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    moe = cfg.family == "moe"
+    with _RouteLog() as got_log:
+        t0 = time.perf_counter()
+        logits = step(params, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = _launches()
     want = expected_launches(cfg)
     require(launches == want, f"{phase}: launches {launches} != {want}")
@@ -2845,24 +3102,77 @@ def phase_prefill_full_width(torch, device, counters, model,
             and bool(torch.isfinite(logits).all()),
             f"{phase}: logits {tuple(logits.shape)} not finite or "
             f"misshaped")
-    t0 = time.perf_counter()
-    ref = make_prefill_step(cfg, impl="plain")(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
+    with _RouteLog() as want_log:
+        t0 = time.perf_counter()
+        ref = make_prefill_step(cfg, impl="plain")(params, inputs)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
     rel = _rel_err(torch, logits, ref)
     abs_err = _max_abs(torch, logits, ref)
     argmax_agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
-    del logits, ref
-    require(rel <= MODEL_REL_TOL,
-            f"{phase}: logits kernel vs plain normwise rel err {rel:.3g}")
-    prof = _profile(torch, lambda: step(params, {"tokens": tokens}))
-    emit(phase, arch=cfg.arch_id, batch=1, seq=PREFILL_SEQ,
-         wall_s=wall, tokens_per_s=PREFILL_SEQ / wall, plain_wall_s=plain_wall,
-         peak_memory_gb=peak_gb, launches=launches,
+    extra = {}
+    if moe:
+        extra["routing"] = _routing_stats(torch, got_log.layers,
+                                          want_log.layers)
+        del ref
+        with _RouteLog(replay=got_log.layers):
+            ref = make_prefill_step(cfg, impl="plain")(params, inputs)
+        extra["logits_rel_err_vs_plain_pinned"] = _rel_err(torch, logits,
+                                                           ref)
+    del logits, ref, got_log, want_log
+    if moe:
+        extra.update(_moe_block_checks(torch, cfg, params, inputs["tokens"],
+                                       device))
+    if rel > MODEL_REL_TOL and moe:
+        extra["check"] = "routing_pinned"
+        pinned = extra["logits_rel_err_vs_plain_pinned"]
+        block = extra["block_rel_err_pinned_max"]
+        require(pinned <= MODEL_REL_TOL and block <= MODEL_REL_TOL,
+                f"{phase}: logits rel err {rel:.3g} over {MODEL_REL_TOL}; "
+                f"with the kernel path's routing {pinned:.3g}, its worst "
+                f"block {block:.3g}")
+    else:
+        require(rel <= MODEL_REL_TOL,
+                f"{phase}: logits kernel vs plain normwise rel err "
+                f"{rel:.3g}")
+    prof = (_profile(torch, lambda: step(params, inputs)) if profile
+            else "not measured: one launch a step of every sLSTM "
+                 "recurrence")
+    emit(phase, arch=cfg.arch_id, reduced=reduced or {}, batch=1,
+         seq=PREFILL_SEQ, wall_s=wall, tokens_per_s=PREFILL_SEQ / wall,
+         plain_wall_s=plain_wall, peak_memory_gb=peak_gb, launches=launches,
          logits_rel_err_vs_plain=rel, logits_max_abs_err_vs_plain=abs_err,
          argmax_agreement_vs_plain=argmax_agree, rel_tol=MODEL_REL_TOL,
-         profile=prof)
+         **extra, profile=prof, phase_wall_s=time.perf_counter() - t_phase)
     return launches
+
+
+def family_phases(torch, device, counters) -> dict:
+    """The other families' full-width serve and prefill phases
+    (:data:`FAMILY_RUNS`), one model on the card at a time: each tag's
+    (serve launches or None, prefill launches)."""
+    import gc
+
+    runs = {}
+    for arch, tag, layers, serve_phase, prefill_phase in FAMILY_RUNS:
+        cfg, params, n_params, init_s, reduced = _family_params(
+            torch, device, arch, layers)
+        emit(f"{tag}_params", arch=arch, params=n_params, init_s=init_s,
+             gb=2 * n_params / 1e9, reduced=reduced)
+        serve = None
+        if serve_phase is not None:
+            serve = phase_serve_full_width(
+                torch, device, counters, (cfg, params), serve_phase,
+                FAMILY_PROMPT, FAMILY_NEW, reduced)
+        prefill = phase_prefill_full_width(
+            torch, device, counters, (cfg, params), prefill_phase,
+            warm=512 if cfg.family == "ssm" else 2048,
+            profile=cfg.family != "ssm", reduced=reduced)
+        runs[tag] = (serve, prefill)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
 
 
 def _lm_worker(queue) -> None:
@@ -2903,13 +3213,15 @@ def run_lm_phases() -> list:
 
 def lm_phases(torch, device, counters):
     """The LM kernel phases, then the full-width serving paths of
-    llama3-8b and of zamba2-2.7b (llama's weights freed first)."""
+    llama3-8b and of zamba2-2.7b (llama's weights freed first), then the
+    other families' (:func:`family_phases`)."""
     import gc
 
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     rms_err, rms_times, rms_floor = phase_rmsnorm_kernel(torch, device)
-    fa_err, fa_times, fa_zamba = phase_flash_kernel(torch, device)
+    fa_err, fa_times, fa_zamba, fa_families = phase_flash_kernel(torch,
+                                                                 device)
     ss_err, ss_times = phase_ssm_scan_kernel(torch, device)
     runs = {}
     for arch, make, tag in ((LLAMA, _llama_params, ""),
@@ -2925,16 +3237,24 @@ def lm_phases(torch, device, counters):
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    families = family_phases(torch, device, counters)
     serve, prefill = runs[LLAMA]
     zserve, zprefill = runs[ZAMBA]
     dec, pre = rms_times["decode"], rms_times["prefill"]
+    rms_families, fa_launches = {}, {}
+    for tag, (fserve, fprefill) in families.items():
+        if fserve is not None:
+            rms_families[f"launches_{tag}"] = fserve["rmsnorm"]
+        rms_families[f"launches_prefill_{tag}"] = fprefill["rmsnorm"]
+        fa_launches[f"launches_{tag}"] = fprefill["flash_attention"]
+        fa_launches[f"launches_tc_{tag}"] = fprefill["flash_attention_tc"]
     return [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:20",
          "launches": serve["rmsnorm"], "launches_prefill": prefill["rmsnorm"],
          "launches_zamba2": zserve["rmsnorm"],
-         "launches_prefill_zamba2": zprefill["rmsnorm"],
+         "launches_prefill_zamba2": zprefill["rmsnorm"], **rms_families,
          "max_abs_err": rms_err, "shape": [SERVE_BATCH, 4096],
          **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                 "bound_by", "library_ms", "library_call_ms")},
@@ -2948,11 +3268,16 @@ def lm_phases(torch, device, counters):
          "launches": prefill["flash_attention"],
          "launches_tc": prefill["flash_attention_tc"],
          "launches_zamba2": zprefill["flash_attention"],
-         "launches_tc_zamba2": zprefill["flash_attention_tc"],
+         "launches_tc_zamba2": zprefill["flash_attention_tc"], **fa_launches,
          "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
          **{k: fa_times[k] for k in FLASH_KEYS},
          "shape_zamba2": list(FLASH_ZAMBA),
-         **{f"{k}_zamba2": fa_zamba[k] for k in FLASH_KEYS}},
+         **{f"{k}_zamba2": fa_zamba[k] for k in FLASH_KEYS},
+         "families": {tag: {"shape": list(FLASH_FAMILIES[tag][0]), **{
+             k: t[k] for k in ("variant", "causal", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "tflops")}}
+                      for tag, t in fa_families.items()}},
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:29",

@@ -21,16 +21,22 @@ imported — and returns the port's counterpart:
   float32, the engine's type).
 
 For the LM path, :func:`params_from_reference` takes a model's parameter
-pytree (``init_params``) and returns the port's module in
-``cfg.param_dtype``: for the dense family the stacked ``blocks`` leaves
-``(L, ...)`` become a :class:`~repro_torch.models.model.DenseLM`, one
-block per layer; for the hybrid family the ``mamba`` leaves ``(n_super,
-per_super, ...)`` and the one ``shared_attn`` block become a
-:class:`~repro_torch.models.model.HybridLM` (the SSM's ``A_log``, ``D`` and
-``dt_bias`` stay fp32, as the reference keeps them whatever the model's
-type).  :func:`cache_from_reference` takes a decode cache.  A bf16 leaf
-(an ``ml_dtypes`` array that ``torch.as_tensor`` rejects) goes through
-float32, which is lossless.
+pytree (``init_params``) of any family and returns the port's module in
+``cfg.param_dtype``, the stacked leaves unstacked: the ``blocks`` leaves
+``(L, ...)`` become a :class:`~repro_torch.models.model.DenseLM` (dense,
+vlm, moe: each block's ``moe`` dict a
+:class:`~repro_torch.models.moe.MoE`) or an
+:class:`~repro_torch.models.model.EncoderLM` (``frame_proj`` in place of
+the embedding); the hybrid family's ``mamba`` leaves ``(n_super,
+per_super, ...)`` and its one ``shared_attn`` block a
+:class:`~repro_torch.models.model.HybridLM`; the ssm family's ``mlstm``
+``(n_super, per_super, ...)`` and ``slstm`` ``(n_super, ...)`` leaves an
+:class:`~repro_torch.models.model.XLSTMLM`.  Leaves the reference keeps
+in fp32 whatever the model's type stay fp32: the SSM's ``A_log``, ``D``
+and ``dt_bias``, the router, the mLSTM's ``w_if`` and ``b_if``, the
+sLSTM's ``r`` and ``b``.  :func:`cache_from_reference` takes a decode
+cache of any family.  A bf16 leaf (an ``ml_dtypes`` array that
+``torch.as_tensor`` rejects) goes through float32, which is lossless.
 
 The tests use it so that both packages run literally the same arrays.
 """
@@ -49,9 +55,12 @@ from repro_torch.diff.softsim import soft_arrays_from_numpy
 from repro_torch.kernels.power_step import StepTables
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, dtype_of
-from repro_torch.models.model import (Block, DenseLM, HybridLM, MambaBlock,
+from repro_torch.models.model import (Block, CellBlock, DenseLM, EncoderLM,
+                                      HybridLM, MambaBlock, XLSTMLM,
                                       require_ported, superblock_shape)
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
+from repro_torch.models.xlstm import MLSTM, SLSTM
 
 _LUT_FIELDS = ("state_p", "state_f", "idle_w", "p_min", "p_max", "f_min",
                "f_nom", "span", "speed", "cap_floor")
@@ -169,9 +178,29 @@ def _index(tree, *idx):
 
 
 def _block(p, dt, device) -> Block:
-    return Block(_leaf(p["ln1"], dt, device), _leaf(p["ln2"], dt, device),
-                 attention_from_reference(p["attn"], dt, device),
-                 mlp_from_reference(p["ffn"], dt, device))
+    ln1, ln2 = _leaf(p["ln1"], dt, device), _leaf(p["ln2"], dt, device)
+    attn = attention_from_reference(p["attn"], dt, device)
+    if "moe" in p:
+        return Block(ln1, ln2, attn, moe=moe_from_reference(p["moe"], dt,
+                                                             device))
+    return Block(ln1, ln2, attn, mlp_from_reference(p["ffn"], dt, device))
+
+
+def _leaves(p, dtype, device, fp32=()):
+    """Every array leaf of one layer's dict in ``dtype``, those named in
+    ``fp32`` in fp32."""
+    return {k: _leaf(v, torch.float32 if k in fp32 else dtype, device)
+            for k, v in p.items() if not isinstance(v, dict)}
+
+
+def moe_from_reference(p, dtype, device="cpu") -> MoE:
+    """One ``moe_init`` dict -> :class:`~repro_torch.models.moe.MoE` (the
+    router in fp32)."""
+    t = _leaves(p, dtype, device, ("router",))
+    dense = p.get("dense")
+    return MoE(t["router"], t["wi"], t["wg"], t["wo"],
+               None if dense is None else mlp_from_reference(dense, dtype,
+                                                             device))
 
 
 #: SSM leaves the reference keeps in fp32 whatever the model's type
@@ -180,25 +209,44 @@ _SSM_FP32 = ("A_log", "D", "dt_bias")
 
 def ssm_from_reference(p, dtype, device="cpu") -> SSM:
     """One ``ssm_init`` dict -> :class:`~repro_torch.models.ssm.SSM`."""
-    t = {k: _leaf(v, torch.float32 if k in _SSM_FP32 else dtype, device)
-         for k, v in p.items()}
+    t = _leaves(p, dtype, device, _SSM_FP32)
     return SSM(t["in_proj"], t["conv"], t["A_log"], t["D"], t["dt_bias"],
                t["out_proj"], t["norm_z"])
 
 
+def mlstm_from_reference(p, dtype, device="cpu") -> MLSTM:
+    """One ``mlstm_init`` dict -> :class:`~repro_torch.models.xlstm.MLSTM`
+    (``w_if``, ``b_if`` in fp32)."""
+    t = _leaves(p, dtype, device, ("w_if", "b_if"))
+    return MLSTM(*(t[k] for k in ("up_x", "up_z", "conv", "wq", "wk", "wv",
+                                  "w_if", "b_if", "norm", "down")))
+
+
+def slstm_from_reference(p, dtype, device="cpu") -> SLSTM:
+    """One ``slstm_init`` dict -> :class:`~repro_torch.models.xlstm.SLSTM`
+    (``r``, ``b`` in fp32)."""
+    t = _leaves(p, dtype, device, ("r", "b"))
+    return SLSTM(*(t[k] for k in ("w_in", "r", "b", "norm", "up1", "up2",
+                                  "down")))
+
+
 def params_from_reference(cfg, params, device="cpu"):
-    """A dense or hybrid model's JAX parameter pytree -> :class:`DenseLM`
-    or :class:`HybridLM` in ``cfg.param_dtype`` on ``device``, the stacked
+    """A model's JAX parameter pytree -> the port's module of its family
+    (see the module doc) in ``cfg.param_dtype`` on ``device``, the stacked
     layers unstacked."""
     require_ported(cfg)
     dt = dtype_of(cfg.param_dtype)
     head = params.get("lm_head")
     head = None if head is None else _leaf(head, dt, device)
-    embed = _leaf(params["embed"], dt, device)
     final = _leaf(params["final_norm"], dt, device)
+    n_super, per_super = superblock_shape(cfg)
+    if cfg.family == "encoder":
+        blocks = [_block(_index(params["blocks"], i), dt, device)
+                  for i in range(cfg.n_layers)]
+        return EncoderLM(_leaf(params["frame_proj"], dt, device), blocks,
+                         final, head)
+    embed = _leaf(params["embed"], dt, device)
     if cfg.family == "hybrid":
-        n_super, per_super = superblock_shape(cfg)
-
         def mamba_block(i, j):
             p = _index(params["mamba"], i, j)
             return MambaBlock(_leaf(p["ln"], dt, device),
@@ -209,6 +257,17 @@ def params_from_reference(cfg, params, device="cpu"):
         return HybridLM(embed, mamba,
                         _block(params["shared_attn"], dt, device), final,
                         head)
+    if cfg.family == "ssm":
+        def cell_block(p, convert):
+            return CellBlock(_leaf(p["ln"], dt, device),
+                             convert(p["cell"], dt, device))
+
+        mlstm = [[cell_block(_index(params["mlstm"], i, j),
+                             mlstm_from_reference)
+                  for j in range(per_super)] for i in range(n_super)]
+        slstm = [cell_block(_index(params["slstm"], i), slstm_from_reference)
+                 for i in range(n_super)]
+        return XLSTMLM(embed, mlstm, slstm, final, head)
     blocks = [_block(_index(params["blocks"], i), dt, device)
               for i in range(cfg.n_layers)]
     return DenseLM(embed, blocks, final, head)

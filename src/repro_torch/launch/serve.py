@@ -18,11 +18,14 @@ library again for a key it had dispatched (a recompile) or after the
 warm-up pass.
 
 **LLM mode** (default, no ``--trace-corpus``): batched prefill + decode
-of a dense or hybrid model with random weights from a seed, through
+of any decoder config (dense, vlm, moe, hybrid, ssm; the encoder has no
+decode step) with random weights from a seed, through
 :class:`ServeEngine`::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --full
 
 It runs on the card by default and fails without one; ``--device cpu``
 runs it on the CPU (``--smoke``, the default, is the reduced config).

@@ -4,7 +4,7 @@ The train step comes with the training path.
 
 Each step runs on the card unless ``device="cpu"`` is passed (``None``
 raises without CUDA); the parameters must live on that device, and the
-token inputs are moved there.
+inputs (tokens, or the encoder's frames) are moved there.
 """
 
 from __future__ import annotations
@@ -26,16 +26,26 @@ def _tokens(tokens, device) -> torch.Tensor:
                            device=device)
 
 
+def _frames(frames, device) -> torch.Tensor:
+    if isinstance(frames, torch.Tensor):
+        return frames.to(device=device)
+    return torch.as_tensor(np.asarray(frames), device=device)
+
+
 def make_prefill_step(cfg: ModelConfig, device=None,
                       impl: Optional[str] = None):
-    """(params, batch ``{"tokens": (B, S)}``) -> logits ``(B, S, V)``."""
+    """(params, batch) -> logits ``(B, S, V)``; the batch is ``{"tokens":
+    (B, S)}``, or ``{"frames": (B, S, d_model)}`` for the encoder family
+    (as the reference's ``input_specs``)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        logits, _aux = forward(cfg, params,
-                               {"tokens": _tokens(batch["tokens"], dev)},
-                               impl=impl)
+        if cfg.family == "encoder":
+            inputs = {"frames": _frames(batch["frames"], dev)}
+        else:
+            inputs = {"tokens": _tokens(batch["tokens"], dev)}
+        logits, _aux = forward(cfg, params, inputs, impl=impl)
         return logits
 
     return prefill_step

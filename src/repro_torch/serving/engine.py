@@ -3,10 +3,12 @@ transcribed from the reference's ``serving/engine.py``.
 
 ``ServeEngine`` keeps aligned batch lanes (all lanes decode the same
 position).  Prefill runs the single-token decode step over the prompt's
-positions, as the reference's scan does, for every family (KV caches and
-Mamba2 states alike), so a request of ``S`` prompt tokens and ``n`` new
-ones takes ``S + n - 1`` decode steps, each with ``2 L + 1`` RMSNorm
-launches (dense) or ``2 L + 2 n_super + 1`` (hybrid).  The reference
+positions, as the reference's scan does, for every decoder family (KV
+caches, Mamba2 and xLSTM states alike), so a request of ``S`` prompt
+tokens and ``n`` new ones takes ``S + n - 1`` decode steps, each with
+``2 L + 1`` RMSNorm launches (dense, vlm, moe, ssm) or ``2 L + 2 n_super
++ 1`` (hybrid).  The encoder family has no decode step and is rejected
+with ``ValueError``, as in the reference.  The reference
 donates its cache to each jitted step; the port allocates it once per
 request and every step writes it in place.  Tokens stay on the device
 until the request ends; the result carries the host wall time of its

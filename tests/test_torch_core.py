@@ -196,6 +196,7 @@ named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
          "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
          "repro_torch.kernels.ref", "repro_torch.models.layers",
          "repro_torch.models.attention", "repro_torch.models.model",
+         "repro_torch.models.moe", "repro_torch.models.xlstm",
          "repro_torch.serving.engine", "repro_torch.launch.steps",
          "repro_torch.launch.serve", "repro_torch.core.block_detector",
          "repro_torch.core.heuristic", "repro_torch.core.simulator",

@@ -1,10 +1,11 @@
-"""The port's dense LM against the JAX reference model.
+"""The port's dense, VLM and encoder LMs against the JAX reference model.
 
 Configs: every arch's ``FULL`` and ``smoke()`` equal field for field.
 Layers and attention: RoPE, ``gqa_attend`` and ``attention`` at S=64 (the
 einsum path) and S=2048 (the blocked path, the flash kernel's plain loop
 here).  Model: ``forward`` logits and ``decode_step`` logits plus the KV
-cache on the llama3-8b and qwen1.5-4b smoke configs, with the JAX
+cache on the llama3-8b, qwen1.5-4b and chameleon-34b (vlm: the dense
+code unchanged) smoke configs, with the JAX
 parameters carried across by ``convert.params_from_reference``, at rtol =
 atol = 1e-4 in fp32, and for a bf16 variant of each config at a normwise
 relative error of 2e-2: elementwise, the reference's own jitted and
@@ -13,7 +14,12 @@ configs (XLA keeps fused intermediates in fp32), so an elementwise bf16
 bound would measure XLA's fusion choices rather than the port.  At
 S=2048 the fp32 reference runs eagerly (``jax.disable_jit``): its jitted
 form differs from itself eager by up to 1.1e-4 there, the port from the
-eager form by under 1e-5.
+eager form by under 1e-5.  The encoder (hubert-xlarge smoke): frames
+through ``frame_proj``, bidirectional attention without RoPE, the GELU
+MLP, at S=64 (einsum path) and S=2048 (the non-causal blocked path), and
+``make_prefill_step`` on frames; it has no cache and no decode step.
+Every family's ``init_params`` gives the names, shapes and types of the
+reference's pytree carried across; an unknown family raises.
 """
 
 import dataclasses
@@ -39,6 +45,8 @@ from repro_torch.models import attention, layers, model  # noqa: E402
 F32 = 1e-4
 BF16 = 2e-2
 DENSE = ["llama3-8b", "qwen1.5-4b"]
+DECODERS = DENSE + ["chameleon-34b"]
+ENCODER = "hubert-xlarge"
 
 
 def f32(a) -> np.ndarray:
@@ -144,7 +152,7 @@ def test_attention_rejects_what_blocked_attend_asserts():
 
 # ------------------------------------------------------------------ model
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_forward_matches(arch, dtype):
     cfg, port = smoke(arch, dtype)
     params = ref_models.init_params(cfg, jax.random.PRNGKey(0))
@@ -171,7 +179,7 @@ def test_forward_blocked_path_matches(arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_decode_step_matches(arch, dtype):
     """Six decode steps from an empty cache: logits at every step and
     the KV cache after the last."""
@@ -216,7 +224,7 @@ def test_params_from_reference_keeps_bf16():
                                   f32(params["embed"]))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 def test_init_params_shapes_and_seed(arch):
     """Same generator seed, same weights; shapes and types those of the
     reference's pytree."""
@@ -231,13 +239,74 @@ def test_init_params_shapes_and_seed(arch):
         [(n, p.shape, p.dtype) for n, p in ref.named_parameters()]
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "chameleon-34b",
-                                  "xlstm-350m", "hubert-xlarge"])
-def test_other_families_are_not_ported(arch):
-    cfg = configs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.init_cache(cfg, 1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.forward(cfg, None, {"tokens": torch.zeros((1, 4), dtype=int)})
+# ---------------------------------------------------------------- encoder
+def _frames(cfg, s, seed):
+    return np.random.default_rng(seed).standard_normal((1, s, cfg.d_model),
+                                                       dtype=np.float32)
+
+
+@pytest.mark.parametrize("s", [64, 2048])
+def test_encoder_forward_matches(s):
+    """S=64: the einsum path; S=2048: the non-causal blocked (flash)
+    path, against the eager reference."""
+    cfg, port = smoke(ENCODER)
+    assert not port.causal and port.mlp == "gelu"
+    params = ref_models.init_params(cfg, jax.random.PRNGKey(s))
+    frames = _frames(cfg, s, s)
+    if s >= 2048:
+        with jax.disable_jit():
+            want, _ = ref_models.forward(cfg, params,
+                                         {"frames": jnp.asarray(frames)})
+    else:
+        want, _ = ref_models.forward(cfg, params,
+                                     {"frames": jnp.asarray(frames)})
+    tparams = params_from_reference(port, params)
+    assert isinstance(tparams, model.EncoderLM)
+    got, aux = model.forward(port, tparams,
+                             {"frames": torch.from_numpy(frames)})
+    assert float(aux) == 0.0 and got.shape == (1, s, cfg.vocab)
+    close(got, want, F32)
+
+
+def test_encoder_bf16_prefill_step_matches():
+    """make_prefill_step on frames, as the reference's prefill step."""
+    from repro.launch.steps import make_prefill_step as ref_prefill
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, port = smoke(ENCODER, "bfloat16")
+    params = ref_models.init_params(cfg, jax.random.PRNGKey(9))
+    frames = _frames(cfg, 48, 9)
+    want = ref_prefill(cfg)(params, {"frames": jnp.asarray(frames)})
+    got = make_prefill_step(port, device="cpu")(
+        params_from_reference(port, params), {"frames": frames})
+    assert got.dtype == torch.bfloat16
+    close_model(got, want, "bfloat16")
+
+
+def test_encoder_has_no_decode_step():
+    _, port = smoke(ENCODER)
+    params = model.init_params(port, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="no decode cache"):
+        model.init_cache(port, 1, 8, "cpu")
+    with pytest.raises(ValueError, match="no decode step"):
+        model.decode_step(port, params, {}, torch.zeros((1, 1), dtype=int), 0)
+
+
+def test_unknown_family_raises():
+    """Every family of the repo's configs is ported; a family the
+    reference does not know raises at every entry point."""
+    from repro_torch.serving.engine import ServeEngine
+
+    assert set(model.FAMILIES) == {configs.get_smoke(a).family
+                                   for a in ref_configs.ARCH_IDS}
+    cfg = dataclasses.replace(configs.get_smoke("llama3-8b"),
+                              family="rnn")
+    for call in (lambda: model.init_params(cfg, torch.Generator()),
+                 lambda: model.init_cache(cfg, 1, 8, "cpu"),
+                 lambda: model.forward(cfg, None, {}),
+                 lambda: model.decode_step(cfg, None, {}, None, 0),
+                 lambda: params_from_reference(cfg, {}),
+                 lambda: ServeEngine(cfg, None, 8, 1, device="cpu")):
+        with pytest.raises(ValueError, match="unknown family 'rnn'"):
+            call()

@@ -2,11 +2,12 @@
 
 Greedy generation from the same weights (carried across by
 ``convert.params_from_reference``) gives the reference's tokens exactly
-on the llama3-8b and qwen1.5-4b smoke configs (fp32).  The port's own
+on the llama3-8b, qwen1.5-4b and chameleon-34b smoke configs (fp32; the
+moe and ssm families' cases are in ``tests/test_torch_moe.py`` and
+``tests/test_torch_xlstm.py``).  The port's own
 checks mirror ``tests/test_runtime_serving.py``: prefill + decode equals
 the teacher-forced ``forward``'s argmax, generation is deterministic,
-encoder-only archs are rejected; besides, the families not yet ported
-raise ``NotImplementedError``, sampling at ``temperature > 0`` is
+encoder-only archs are rejected; besides, sampling at ``temperature > 0`` is
 reproducible from its seed (shapes only against the reference: its
 ``jax.random`` bits cannot be matched), the step functions and the CLI
 run on the CPU when asked, and default to the card.
@@ -40,7 +41,8 @@ def _port(arch, seed):
     return cfg, init_params(cfg, torch.Generator().manual_seed(seed))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
+                                  "chameleon-34b"])
 def test_greedy_tokens_equal_reference(arch):
     cfg = ref_smoke(arch)
     params = ref_init(cfg, jax.random.PRNGKey(0))
@@ -122,14 +124,6 @@ def test_encoder_rejected():
                     device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "chameleon-34b",
-                                  "xlstm-350m"])
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(get_smoke(arch), None, max_seq=8, max_batch=1,
-                    device="cpu")
-
-
 def test_entry_points_default_to_the_card():
     """device=None means the card: without CUDA every entry point raises
     rather than running on the CPU."""
@@ -144,12 +138,20 @@ def test_entry_points_default_to_the_card():
             make()
 
 
-def test_cli_runs_on_the_cpu(capsys):
-    assert serve.main(["--arch", "llama3-8b", "--device", "cpu", "--batch",
+@pytest.mark.parametrize("arch", ["llama3-8b", "moonshot-v1-16b-a3b",
+                                  "arctic-480b", "chameleon-34b",
+                                  "xlstm-350m"])
+def test_cli_runs_on_the_cpu(capsys, arch):
+    assert serve.main(["--arch", arch, "--device", "cpu", "--batch",
                        "2", "--prompt-len", "4", "--max-new", "3"]) == 0
     out = capsys.readouterr().out
-    assert "llama3-8b on cpu: batch=2 prompt=4 new=3" in out
+    assert f"{arch} on cpu: batch=2 prompt=4 new=3" in out
     assert out.count("lane ") == 2
+
+
+def test_cli_rejects_the_encoder():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "hubert-xlarge", "--device", "cpu"])
 
 
 def test_reference_tokens_follow_forward():
