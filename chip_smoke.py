@@ -62,7 +62,15 @@ port's two paths:
   chameleon-34b (VLM, depth cut to 8 layers) and hubert-xlarge
   (encoder: prefill on frames, non-causal ``flash_attention`` at dh=80;
   no decode), with the MoE's dropped share and its routing agreement
-  between the kernel and the plain path.
+  between the kernel and the plain path;
+* the training path at full width, llama3-8b with its depth cut to 2 of
+  32 layers (S=4096, batch 1, fp32 AdamW state, remat): the backward
+  kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) against their plain
+  twins, step 0's loss and gradients against ``impl="plain"``, 4 steps
+  of ``PowerAwareTrainer`` (``build_trainer(..., device="cuda")``) with
+  exact launch counts, a checkpoint restored bit for bit by a fresh
+  trainer, the train CLI's failure recovery in its own process, and
+  ``ssm_scan`` refusing to run under grad on the card.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase; then a ``kernels`` line, the
@@ -2717,15 +2725,21 @@ def phase_ssm_scan_kernel(torch, device):
     return max(worst.values()), times
 
 
-def _llama_params(torch, device):
+def _llama_config():
+    """llama3-8b's shipped config, checked at full width (with remat, as
+    the trainer runs it; the training phase cuts its depth)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(LLAMA)
-    require(cfg.n_layers == 32 and cfg.d_model == 4096
-            and cfg.n_heads == 32 and cfg.n_kv_heads == 8
-            and cfg.d_ff == 14336 and cfg.vocab == 128256
-            and cfg.dtype == "bfloat16", f"{LLAMA} is not at full width")
-    return _random_params(torch, device, cfg)
+    require(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
+            and cfg.n_kv_heads == 8 and cfg.dh == 128 and cfg.d_ff == 14336
+            and cfg.vocab == 128256 and cfg.dtype == "bfloat16"
+            and cfg.remat, f"{LLAMA} is not at full width with remat")
+    return cfg
+
+
+def _llama_params(torch, device):
+    return _random_params(torch, device, _llama_config())
 
 
 def _zamba2_params(torch, device):
@@ -2831,7 +2845,32 @@ def expected_launches(cfg) -> dict:
                 else cfg.n_layers}
     tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
     want["flash_attention_tc"] = want["flash_attention"] if tc else 0
+    want["rmsnorm_bwd"] = want["flash_attention_bwd"] = 0
     return want
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one training step (loss and backward, one
+    microbatch) of a dense-family model at S >= 2048 with ``cfg.remat``:
+    the forward's ``2 L + 1`` rmsnorm and ``L`` flash, the recompute of
+    every block in the backward (``2 L`` rmsnorm and ``L`` flash: each
+    block's norms and attention lie before its last saved activation, so
+    the recompute runs through them), and the backward kernels, one per
+    forward call: ``2 L + 1`` rmsnorm_bwd and ``L`` flash_attention_bwd.
+    In all ``4 L + 1``, ``2 L`` (all on the tensor-core kernel at bf16 dh
+    128), ``2 L + 1`` and ``L``; no ssm_scan."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel_variant
+
+    n = cfg.n_layers
+    require(cfg.family in ("dense", "vlm", "moe", "encoder") and cfg.remat,
+            f"{cfg.arch_id}: the training formula is the dense families' "
+            f"with remat")
+    tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
+    return {"rmsnorm": 4 * n + 1, "ssm_scan": 0, "flash_attention": 2 * n,
+            "flash_attention_tc": 2 * n if tc else 0,
+            "rmsnorm_bwd": 2 * n + 1, "flash_attention_bwd": n}
 
 
 def _launches():
@@ -2842,12 +2881,28 @@ def _launches():
     return {"rmsnorm": rn.LAUNCHES["rmsnorm"],
             "ssm_scan": ss.LAUNCHES["ssm_scan"],
             "flash_attention": fa.LAUNCHES["flash_attention"],
-            "flash_attention_tc": fa.LAUNCHES["flash_attention_tc"]}
+            "flash_attention_tc": fa.LAUNCHES["flash_attention_tc"],
+            "rmsnorm_bwd": rn.LAUNCHES["rmsnorm_bwd"],
+            "flash_attention_bwd": fa.LAUNCHES["flash_attention_bwd"]}
 
 
-def _profile(torch, fn):
+#: Device-time groups of a training step's kernels, by name fragment
+#: (first match wins; the rest is "other").
+TRAIN_GROUPS = (("flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_stats")),
+                ("flash_attention", ("flash_tc_kernel", "flash_kernel")),
+                ("rmsnorm_bwd", ("rmsnorm_bwd",)),
+                ("rmsnorm", ("rmsnorm_",)),
+                ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce",)),
+                ("copy", ("copy", "memcpy", "memset")))
+
+
+def _profile(torch, fn, top=6, groups=None):
     """Run ``fn`` once under ``torch.profiler``: wall s, device s and the
-    five kernels with the most device time (ms)."""
+    ``top`` kernels with the most device time (ms; names cut to 70
+    characters, the kernels a cut name covers summed); with ``groups``
+    ((name, fragments) pairs), the device ms of each group too."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2858,12 +2913,24 @@ def _profile(torch, fn):
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device_s = sum(_self_device_us(e) for e in rows) / 1e6
-    top = sorted(rows, key=_self_device_us, reverse=True)[:6]
-    return {"wall_s": wall, "device_s": device_s,
-            "device_busy_share": device_s / wall,
-            "device_launches": sum(e.count for e in rows),
-            "top_device_ms": {e.key[:70]: _self_device_us(e) / 1e3
-                              for e in top}}
+    by_name = {}
+    for e in rows:
+        by_name[e.key[:70]] = by_name.get(e.key[:70], 0.0) + \
+            _self_device_us(e) / 1e3
+    first = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
+    out = {"wall_s": wall, "device_s": device_s,
+           "device_busy_share": device_s / wall,
+           "device_launches": sum(e.count for e in rows),
+           "top_device_ms": dict(first[:top])}
+    if groups is not None:
+        ms = {name: 0.0 for name, _ in groups}
+        ms["other"] = 0.0
+        for e in rows:
+            name = next((n for n, frags in groups
+                         if any(f in e.key for f in frags)), "other")
+            ms[name] += _self_device_us(e) / 1e3
+        out["group_device_ms"] = ms
+    return out
 
 
 def _zero(counters):
@@ -3175,7 +3242,437 @@ def family_phases(torch, device, counters) -> dict:
     return runs
 
 
-def _lm_worker(queue) -> None:
+# ------------------------------------------------------------ training
+#: The training path's configuration: llama3-8b at full width, depth cut
+#: to TRAIN_LAYERS of 32, S=4096, global batch 1, fp32 AdamW state.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2, 4096, 1, 4
+#: Virtual hosts of the trainer's cluster model (the reference CLI's
+#: default).
+TRAIN_HOSTS = 8
+#: rmsnorm_bwd at the training shape: the norms' rows (B * S) of d_model.
+RMSNORM_BWD_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096)
+#: rmsnorm_bwd's other cases: (rows, d, dtype, layer_form, x offset).
+RMSNORM_BWD_CASES = ((RMSNORM_BWD_MAIN[0], 4096, "float32", True, 0),
+                     (RMSNORM_BWD_MAIN[0], 4096, "bfloat16", False, 0),
+                     (SERVE_BATCH, 4096, "bfloat16", True, 0),
+                     (1001, 4096, "float32", False, 0),
+                     (37, 1001, "bfloat16", True, 0),
+                     (37, 4096, "bfloat16", True, 1),
+                     (16, 20000, "float32", True, 0))
+#: flash_attention_bwd's cases besides the training shape (FLASH_MAIN,
+#: bf16, causal): (shape, dtype, causal, window); every head dim of
+#: HEAD_DIMS, fp32, windowed and non-causal.
+FLASH_BWD_CASES = (((1, 4, 4, 256, 64), "float32", False, 0),
+                   ((2, 8, 2, 512, 64), "bfloat16", True, 0),
+                   ((1, 4, 2, 1024, 128), "bfloat16", True, 256),
+                   ((1, 4, 1, 512, 128), "bfloat16", False, 0),
+                   ((1, 2, 1, 256, 16), "bfloat16", True, 0),
+                   ((1, 2, 1, 256, 32), "float32", True, 100),
+                   ((1, 2, 2, 256, 80), "bfloat16", False, 0),
+                   ((1, 2, 1, 192, 256), "bfloat16", True, 0),
+                   ((1, 2, 1, 192, 256), "float32", False, 70))
+
+
+#: How the backward kernels' phases time: the profiler's device sums late
+#: in the LM worker dropped kernels (run AO: F.rms_norm's forward read
+#: below its bytes bound), so each time is CUDA events around
+#: back-to-back calls; ``device_ms`` is the profiler's, for comparison.
+EVENT_TIMING = ("ms, plain_ms, library_ms, library_bwd_ms: CUDA events "
+                "over back-to-back calls after a warm-up (host included "
+                "where the host is slower than the card); device_ms: the "
+                "profiler's device sum of the kernel")
+
+
+def _event_times(torch, calls: dict, reps: int = 20) -> dict:
+    """:func:`call_ms` of each call, in turns (each call, then each again
+    in reverse order), the two readings averaged."""
+    first = {k: call_ms(torch, fn, reps) for k, fn in calls.items()}
+    second = {k: call_ms(torch, calls[k], reps) for k in reversed(calls)}
+    return {k: (first[k] + second[k]) / 2 for k in calls}
+
+
+def _rmsnorm_bwd_bytes_ops(rows: int, d: int, size: int):
+    """Bytes (x and dy read, dx written, gamma read, dgamma written) and
+    fp32 operations (~12 an element) of one backward."""
+    return 3 * rows * d * size + 2 * d * size, 12 * rows * d
+
+
+def phase_rmsnorm_bwd_kernel(torch, device):
+    """rmsnorm_bwd kernel vs its plain twin at the training shape (4096
+    rows of 4096, bf16, the layer's form) and at fp32, the other form, the
+    decode batch, ragged rows, a width that is no multiple of 16 bytes, an
+    x off its alignment and a row of 20,000, under :data:`LM_TOL`; dx and
+    dgamma the same from run to run.  Times at the training shape: the
+    kernel, the plain twin, and ``F.rms_norm`` forward + backward through
+    autograd (the library's yardstick: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    worst, bitwise, cases = 0.0, True, 0
+    inputs = None
+    for rows, d, dtype, layer, skip in \
+            ((*RMSNORM_BWD_MAIN, "bfloat16", True, 0),) + RMSNORM_BWD_CASES:
+        td = getattr(torch, dtype)
+        x = (3 * torch.randn(rows * d + skip, generator=gen,
+                             device=device)).to(td)[skip:].view(rows, d)
+        g = (1 + torch.randn(d, generator=gen, device=device)).to(td)
+        dy = torch.randn((rows, d), generator=gen, device=device).to(td)
+        got = rn.rmsnorm_bwd(x.contiguous(), g, dy, layer_form=layer)
+        again = rn.rmsnorm_bwd(x.contiguous(), g, dy, layer_form=layer)
+        want = rn.rmsnorm_bwd(x, g, dy, layer_form=layer, impl="plain")
+        for a, b, c in zip(got, want, again):
+            err = _max_abs(torch, a.view(-1, a.shape[-1]),
+                           b.view(-1, b.shape[-1]))
+            require(_within(torch, a, b, dtype) and bool(torch.equal(a, c)),
+                    f"rmsnorm_bwd {rows}x{d} {dtype} layer={layer}: kernel "
+                    f"vs plain max abs err {err:.3g}, or not the same "
+                    f"from run to run")
+            worst = max(worst, err)
+            bitwise = bitwise and bool(torch.equal(a, b))
+        cases += 1
+        if inputs is None:
+            inputs = (x, g, dy)
+    torch.cuda.synchronize()
+    x, g, dy = inputs
+    rows, d = RMSNORM_BWD_MAIN
+    xr = x.detach().clone().requires_grad_(True)
+    gr = g.detach().clone().requires_grad_(True)
+    y = F.rms_norm(xr, (d,), gr, 1e-5)
+    calls = {"ms": lambda: rn.rmsnorm_bwd(x, g, dy),
+             "plain_ms": lambda: rn.rmsnorm_bwd(x, g, dy, impl="plain"),
+             "library_ms": lambda: F.rms_norm(xr, (d,), gr,
+                                              1e-5).backward(dy),
+             "library_bwd_ms": lambda: torch.autograd.grad(
+                 y, (xr, gr), dy, retain_graph=True)}
+    times = _event_times(torch, calls)
+    times["device_ms"] = device_ms(torch, calls["ms"], 20)
+    times.update(bound(*_rmsnorm_bwd_bytes_ops(rows, d, 2), FP32_OPS_PER_S))
+    times["bound_share"] = times["bound_ms"] / times["ms"]
+    emit("rmsnorm_bwd_kernel", cases=cases, tol=LM_TOL, max_abs_err=worst,
+         bitwise_equal=bitwise, shape=list(RMSNORM_BWD_MAIN),
+         timing=EVENT_TIMING, library_note="library_ms is F.rms_norm "
+         "forward + backward through autograd, library_bwd_ms its backward "
+         "alone (a retained graph)", times=times)
+    return worst, times
+
+
+def _flash_bwd_bytes_ops(shape, causal: bool, window: int, size: int):
+    """Bytes (q, k, v, o, do read; dq, dk, dv written) and the fewest
+    operations of the gradient: 10 * dh a kept query/key pair (s again,
+    dp, dv, dk, dq; FA2's count)."""
+    b, h, hkv, s, dh = shape
+    nbytes = size * (5 * b * h * s * dh + 4 * b * hkv * s * dh)
+    return nbytes, 10 * b * h * dh * _causal_pairs(s, causal, window)
+
+
+def phase_flash_bwd_kernel(torch, device):
+    """flash_attention_bwd kernel vs its plain twin (on the forward
+    kernel's output) at the training shape (B=1, H=32, Hkv=8, S=4096,
+    dh=128, bf16, causal) and :data:`FLASH_BWD_CASES` (every head dim of
+    ``HEAD_DIMS``, fp32, windowed, non-causal, GQA groups 1 to 4), under
+    :data:`LM_TOL`, the same from run to run.  Times at the training
+    shape: the kernel, the plain twin, and SDPA forward + backward through
+    autograd (the library's yardstick: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    worst, inputs = {}, None
+    for shape, dtype, causal, window in \
+            ((FLASH_MAIN, "bfloat16", True, 0),) + FLASH_BWD_CASES:
+        b, h, hkv, s, dh = shape
+        td = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(sh, generator=gen, device=device).to(td)
+                       for sh in ((b, h, s, dh), (b, hkv, s, dh),
+                                  (b, hkv, s, dh), (b, h, s, dh)))
+        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        got = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
+        again = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
+        want = fa.flash_attention_bwd(q, k, v, o, do, causal, window,
+                                      impl="plain")
+        name = (f"{b}x{h}/{hkv}x{s}x{dh} {dtype} causal={causal} "
+                f"w={window}")
+        errs = []
+        for grad, a, w, r in zip("qkv", got, want, again):
+            errs.append(_max_abs(torch, a, w))
+            require(_within(torch, a, w, dtype) and bool(torch.equal(a, r)),
+                    f"flash_bwd {name} d{grad}: kernel vs plain max abs err "
+                    f"{errs[-1]:.3g}, or not the same from run to run")
+        worst[name] = max(errs)
+        if inputs is None:
+            inputs = (q, k, v, o, do)
+    torch.cuda.synchronize()
+    q, k, v, o, do = inputs
+    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa(*qkv):
+        return F.scaled_dot_product_attention(*qkv, is_causal=True,
+                                              enable_gqa=True)
+
+    y = sdpa(qr, kr, vr)
+    calls = {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, do),
+             "plain_ms": lambda: fa.flash_attention_bwd(q, k, v, o, do,
+                                                        impl="plain"),
+             "library_ms": lambda: sdpa(qr, kr, vr).backward(do),
+             "library_bwd_ms": lambda: torch.autograd.grad(
+                 y, (qr, kr, vr), do, retain_graph=True)}
+    times = _event_times(torch, calls, reps=5)
+    times["device_ms"] = device_ms(torch, calls["ms"], 3)
+    times.update(bound(*_flash_bwd_bytes_ops(FLASH_MAIN, True, 0, 2),
+                       BF16_TENSOR_OPS_PER_S))
+    times["tflops"] = times["ops"] / (times["ms"] * 1e9)
+    times["bound_share"] = times["bound_ms"] / times["ms"]
+    emit("flash_bwd_kernel", tol=LM_TOL, max_abs_err=worst,
+         shape=list(FLASH_MAIN), timing=EVENT_TIMING,
+         library_note="library_ms is SDPA forward + backward through "
+                      "autograd, library_bwd_ms its backward alone (a "
+                      "retained graph)", times=times)
+    return max(worst.values()), times
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def phase_train_full_width(torch, device, counters, smi):
+    """The training path at full width: llama3-8b (d 4096, 32 heads, GQA
+    8, d_ff 14336, vocab 128256, bf16, remat), depth cut to
+    :data:`TRAIN_LAYERS`, S=4096, batch 1, fp32 AdamW state, through
+    ``build_trainer(..., device="cuda")`` and ``PowerAwareTrainer``.
+
+    Step 0's loss and every parameter's gradient at impl=None against
+    impl="plain" from the same weights and batch (normwise,
+    :data:`MODEL_REL_TOL`); then :data:`TRAIN_STEPS` trainer steps with
+    the launch counts set to 0 just before and held against
+    :func:`expected_train_launches` per step; the checkpoint the last step
+    saved restored by a fresh trainer (resumes at step 4, parameters and
+    moments bit-equal); one more step under the profiler.  The train CLI
+    runs in its own process on the card meanwhile (a failure injected at
+    step 6 of 10 on 4 hosts of the smoke config: it must recover on 3
+    hosts and reach step 9)."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import flatten_tree
+    from repro_torch.data.pipeline import global_batch
+    from repro_torch.launch.steps import train_batch
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import loss_fn
+
+    t_phase = time.perf_counter()
+    _llama_config()
+    tmp = tempfile.TemporaryDirectory(prefix="train_", dir=ROOT / "build")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli_cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+               "10", "--hosts", "4", "--batch", "4", "--seq", "64",
+               "--fail-at", "6", "--ckpt-dir", str(Path(tmp.name) / "cli"),
+               "--device", str(device)]
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(cli_cmd, cwd=ROOT, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    try:
+        def trainer():
+            return build_trainer(
+                LLAMA, smoke=False, steps=TRAIN_STEPS, hosts=TRAIN_HOSTS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                ckpt_dir=str(Path(tmp.name) / "ckpt"),
+                n_layers=TRAIN_LAYERS, device=device)
+
+        t0 = time.perf_counter()
+        tr = trainer()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        model, tcfg = tr.model, tr.mcfg
+        n_params = sum(p.numel() for p in model.parameters())
+        # step 0 from the same weights and batch: the kernel path vs plain
+        batch = train_batch(global_batch(tr.dcfg, 0), device)
+        step0 = {}
+        for impl in (None, "plain"):
+            _zero(counters)
+            loss, _ = loss_fn(tcfg, model, batch, impl=impl)
+            loss.backward()
+            torch.cuda.synchronize()
+            step0[impl] = (float(loss.detach()), _grads(model),
+                           _launches())
+            model.zero_grad(set_to_none=True)
+        want_step = expected_train_launches(tcfg)
+        require(step0[None][2] == want_step,
+                f"train step 0: launches {step0[None][2]} != {want_step}")
+        require(not any(step0["plain"][2].values()),
+                f"train step 0 at impl=plain launched {step0['plain'][2]}")
+        losses0 = {"kernels": step0[None][0], "plain": step0["plain"][0]}
+        loss_rel = abs(losses0["kernels"] - losses0["plain"]) / \
+            abs(losses0["plain"])
+        grad_rel = {}
+        for name, g in step0[None][1].items():
+            grad_rel[name] = _rel_err(torch, g.view(-1, g.shape[-1]),
+                                      step0["plain"][1][name].view(
+                                          -1, g.shape[-1]))
+        require(loss_rel <= MODEL_REL_TOL
+                and max(grad_rel.values()) <= MODEL_REL_TOL,
+                f"train step 0: loss rel err {loss_rel:.3g}, worst gradient "
+                f"{max(grad_rel, key=grad_rel.get)} "
+                f"{max(grad_rel.values()):.3g} (bar {MODEL_REL_TOL})")
+        del step0, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        out, _ = cli.communicate(timeout=600)
+        cli_wall = time.perf_counter() - t_cli
+        require(cli.returncode == 0
+                and "hosts left 3; last step 9" in out,
+                f"train CLI: exit {cli.returncode}, no recovery line\n{out}")
+
+        # the main path: TRAIN_STEPS trainer steps, each step's launches
+        # read around the trainer's own step function
+        per_step, step_fn = [], tr.train_step
+
+        def counted(*args):
+            before = _launches()
+            out = step_fn(*args)
+            per_step.append({k: v - before[k]
+                             for k, v in _launches().items()})
+            return out
+
+        tr.train_step = counted
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        history = tr.run()
+        torch.cuda.synchronize()
+        launches = _launches()
+        tr.train_step = step_fn
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {k: v * TRAIN_STEPS for k, v in want_step.items()}
+        require(launches == want and per_step == [want_step] * TRAIN_STEPS,
+                f"train_full_width: launches {launches} != {want}, or per "
+                f"step {per_step} != {want_step}")
+        require([r.step for r in history] == list(range(TRAIN_STEPS))
+                and all(np.isfinite(r.loss) for r in history),
+                f"train_full_width: steps {[r.step for r in history]}, "
+                f"losses {[r.loss for r in history]}")
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        steps = [{"step": r.step, "loss": r.loss, "ms": 1e3 * r.wall_s,
+                  "tokens_per_s": tokens / r.wall_s,
+                  "model_flops_share": 6 * n_params * tokens
+                  / (r.wall_s * BF16_TENSOR_OPS_PER_S),
+                  "straggler": r.straggler, "max_cap_w": max(r.caps_w)}
+                 for r in history]
+
+        # checkpoint round trip: a fresh trainer resumes at step 4
+        saved = tr.ckpt.latest_step()
+        t0 = time.perf_counter()
+        fresh = trainer()
+        restore_s = time.perf_counter() - t0
+        require(saved == TRAIN_STEPS - 1
+                and fresh.start_step == TRAIN_STEPS,
+                f"checkpoint: saved step {saved}, fresh trainer starts at "
+                f"{fresh.start_step}")
+        pairs = list(zip(flatten_tree(tr.state()),
+                         flatten_tree(fresh.state())))
+        require(all(pa == pb and a.dtype == b.dtype and torch.equal(a, b)
+                    for (pa, a), (pb, b) in pairs),
+                "checkpoint: the restored state is not bit-equal")
+        ckpt_gb = sum(p.stat().st_size for p in Path(
+            tr.ckpt.dir).rglob("*.npy")) / 1e9
+        del fresh, pairs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one more step under the profiler: device busy share, top kernels
+        batch = global_batch(tr.dcfg, TRAIN_STEPS)
+        prof = _profile(torch, lambda: tr.train_step(
+            tr.model, tr.opt_state, batch, TRAIN_STEPS), top=16,
+            groups=TRAIN_GROUPS)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        tmp.cleanup()
+    summary = tr.speedup_summary()
+    emit("train_full_width", nvidia_smi=smi, arch=LLAMA,
+         reduced={"n_layers": [32, TRAIN_LAYERS]}, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, params=n_params, state_dtype=tr.ocfg.state_dtype,
+         init_s=init_s, step0_loss=losses0,
+         loss_rel_err_vs_plain=loss_rel,
+         grad_rel_err_vs_plain_max=max(grad_rel.values()),
+         grad_rel_err_vs_plain={k: grad_rel[k] for k in sorted(grad_rel)},
+         rel_tol=MODEL_REL_TOL,
+         grad_note="embed's gradient is an atomic scatter (index_put "
+                   "with accumulate) on both paths: its sums run in no "
+                   "fixed order",
+         steps=steps, launches=launches, launches_per_step=want_step,
+         peak_memory_gb=peak_gb, hosts=TRAIN_HOSTS,
+         power_aware_speedup=summary["speedup"],
+         checkpoint_gb=ckpt_gb, restore_s=restore_s,
+         cli_wall_s=cli_wall, cli_last_line=out.strip().splitlines()[-1],
+         profile_step=prof, phase_wall_s=time.perf_counter() - t_phase)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssm_grad_guard(torch, device):
+    """ssm_scan under grad on the card raises: its kernel has no backward
+    yet, and the hybrid family's training there is the next slice."""
+    from repro_torch.kernels import ssm_scan as ss
+
+    x = torch.randn((1, 2, 64, 16), device=device, requires_grad=True)
+    a = -torch.rand((1, 2, 64), device=device)
+    dt = torch.rand((1, 2, 64), device=device)
+    bm, cm = (torch.randn((1, 64, 8), device=device) for _ in range(2))
+    try:
+        ss.ssm_scan(x, a, dt, bm, cm, chunk=64)
+    except RuntimeError as err:
+        msg = str(err)
+    else:
+        raise SmokeFailure("ssm_scan under grad on the card did not raise")
+    emit("ssm_grad_guard", raised=msg)
+
+
+def train_phases(torch, device, counters, smi):
+    """The training slice: both backward kernels against their plain
+    twins, the full-width training path, the ssm_scan guard."""
+    rn_err, rn_times = phase_rmsnorm_bwd_kernel(torch, device)
+    fa_err, fa_times = phase_flash_bwd_kernel(torch, device)
+    launches = phase_train_full_width(torch, device, counters, smi)
+    phase_ssm_grad_guard(torch, device)
+    why = ("the reference trains through plain jnp and XLA's autodiff "
+           "(no custom_vjp); the port's forward is a ctypes kernel autograd "
+           "cannot see through, so its backward is a kernel too")
+    return launches, [
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+         "replaces": None, "why": why,
+         "backward_of": "src/repro/models/layers.py:38",
+         "launches": launches["rmsnorm_bwd"],
+         "launches_train": launches["rmsnorm_bwd"],
+         "max_abs_err": rn_err, "shape": list(RMSNORM_BWD_MAIN),
+         **{k: rn_times[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_bwd_ms")}},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": None, "why": why,
+         "backward_of": "src/repro/models/attention.py:96",
+         "launches": launches["flash_attention_bwd"],
+         "launches_train": launches["flash_attention_bwd"],
+         "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
+         **{k: fa_times[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_bwd_ms", "tflops")}},
+    ]
+
+
+def _lm_worker(queue, smi) -> None:
     """Worker process: the LM phases on the card.  A fresh process gets a
     fresh profiler: in one process, after the wave engine's phases, the
     profiler stopped recording device time (an H100 run of this script).
@@ -3187,18 +3684,18 @@ def _lm_worker(queue) -> None:
 
         sys.path.insert(0, str(SRC))
         queue.put(("ok", lm_phases(torch, torch.device("cuda"),
-                                   _counters())))
+                                   _counters(), smi)))
     except Exception:     # reported to the parent, which fails the run
         queue.put(("error", traceback.format_exc()))
 
 
-def run_lm_phases() -> list:
+def run_lm_phases(smi) -> list:
     """The LM phases in a spawned process; their kernels' entries."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    worker = ctx.Process(target=_lm_worker, args=(queue,))
+    worker = ctx.Process(target=_lm_worker, args=(queue, smi))
     worker.start()
     try:
         status, out = queue.get(timeout=900)
@@ -3211,10 +3708,11 @@ def run_lm_phases() -> list:
     return out
 
 
-def lm_phases(torch, device, counters):
+def lm_phases(torch, device, counters, smi):
     """The LM kernel phases, then the full-width serving paths of
     llama3-8b and of zamba2-2.7b (llama's weights freed first), then the
-    other families' (:func:`family_phases`)."""
+    other families' (:func:`family_phases`), then the training path
+    (:func:`train_phases`)."""
     import gc
 
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
@@ -3238,6 +3736,7 @@ def lm_phases(torch, device, counters):
         gc.collect()
         torch.cuda.empty_cache()
     families = family_phases(torch, device, counters)
+    train, train_entries = train_phases(torch, device, counters, smi)
     serve, prefill = runs[LLAMA]
     zserve, zprefill = runs[ZAMBA]
     dec, pre = rms_times["decode"], rms_times["prefill"]
@@ -3255,6 +3754,7 @@ def lm_phases(torch, device, counters):
          "launches": serve["rmsnorm"], "launches_prefill": prefill["rmsnorm"],
          "launches_zamba2": zserve["rmsnorm"],
          "launches_prefill_zamba2": zprefill["rmsnorm"], **rms_families,
+         "launches_train": train["rmsnorm"],
          "max_abs_err": rms_err, "shape": [SERVE_BATCH, 4096],
          **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                 "bound_by", "library_ms", "library_call_ms")},
@@ -3269,6 +3769,8 @@ def lm_phases(torch, device, counters):
          "launches_tc": prefill["flash_attention_tc"],
          "launches_zamba2": zprefill["flash_attention"],
          "launches_tc_zamba2": zprefill["flash_attention_tc"], **fa_launches,
+         "launches_train": train["flash_attention"],
+         "launches_tc_train": train["flash_attention_tc"],
          "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
          **{k: fa_times[k] for k in FLASH_KEYS},
          "shape_zamba2": list(FLASH_ZAMBA),
@@ -3285,7 +3787,7 @@ def lm_phases(torch, device, counters):
          "shape": list(SSM_MAIN),
          **{k: ss_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                      "bound_by", "library_ms")}},
-    ]
+    ] + train_entries
 
 
 #: What the kernels line keeps of each flash timing.
@@ -3415,7 +3917,7 @@ def main() -> int:
                 or ln.startswith("[")])
 
     kernels = sim_phases(torch, device, _counters(), smi)
-    kernels += run_lm_phases()
+    kernels += run_lm_phases(smi)
     for entry in kernels:    # each source's nvcc seconds in this run
         entry["build_s"] = kl.source_s.get(Path(entry["source"]).name)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,13 +35,19 @@ per_super, ...)`` and its one ``shared_attn`` block a
 in fp32 whatever the model's type stay fp32: the SSM's ``A_log``, ``D``
 and ``dt_bias``, the router, the mLSTM's ``w_if`` and ``b_if``, the
 sLSTM's ``r`` and ``b``.  :func:`cache_from_reference` takes a decode
-cache of any family.  A bf16 leaf (an ``ml_dtypes`` array that
-``torch.as_tensor`` rejects) goes through float32, which is lossless.
+cache of any family.  :func:`opt_state_from_reference` takes an
+``init_opt_state`` tree of a model's parameters (fp32, bf16 or int8
+``_QTensor`` moments) and returns the port's optimizer state under the
+names ``params_from_reference`` gives the parameters.  A bf16 leaf (an
+``ml_dtypes`` array that ``torch.as_tensor`` rejects) goes through
+float32, which is lossless.
 
 The tests use it so that both packages run literally the same arrays.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -61,6 +67,7 @@ from repro_torch.models.model import (Block, CellBlock, DenseLM, EncoderLM,
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
 from repro_torch.models.xlstm import MLSTM, SLSTM
+from repro_torch.optim import QTensor
 
 _LUT_FIELDS = ("state_p", "state_f", "idle_w", "p_min", "p_max", "f_min",
                "f_nom", "span", "speed", "cap_floor")
@@ -278,3 +285,41 @@ def cache_from_reference(cache, device="cpu"):
     type (a bf16 leaf stays bf16)."""
     return {k: _leaf(v, getattr(torch, np.asarray(v).dtype.name), device)
             for k, v in cache.items()}
+
+
+def _moment(tree, key: str, field=None):
+    """The parameter-shaped tree of one moment (``key`` "m" or "v"), or of
+    one field of an int8 moment, from an ``init_opt_state`` tree."""
+    if set(tree) == {"m", "v"} and not isinstance(tree["m"], dict):
+        leaf = tree[key]
+        return np.asarray(leaf if field is None else getattr(leaf, field))
+    return {k: _moment(v, key, field) for k, v in tree.items()}
+
+
+def opt_state_from_reference(cfg, state, device="cpu"):
+    """A reference ``init_opt_state`` tree of a model's parameters -> the
+    port's optimizer state ``{name: {"m", "v"}}``, the names those
+    :func:`params_from_reference` gives the parameters: fp32 and bf16
+    moments in their type, int8 ones as
+    :class:`~repro_torch.optim.QTensor` (int8 codes, fp32 scales)."""
+    as_f32 = dataclasses.replace(cfg, param_dtype="float32")
+
+    def named(tree, dtype):
+        module = params_from_reference(as_f32, tree, device)
+        return {k: p.detach().to(dtype) for k, p in module.named_parameters()}
+
+    first = state
+    while isinstance(first, dict):
+        first = next(iter(first.values()))    # a leaf's {"m", "v"}: its m
+    out = {}
+    for key in ("m", "v"):
+        if hasattr(first, "codes"):           # int8: (codes, scale)
+            codes = named(_moment(state, key, "codes"), torch.int8)
+            scale = named(_moment(state, key, "scale"), torch.float32)
+            moments = {k: QTensor(codes[k], scale[k]) for k in codes}
+        else:
+            moments = named(_moment(state, key),
+                            getattr(torch, np.asarray(first).dtype.name))
+        for name, t in moments.items():
+            out.setdefault(name, {})[key] = t
+    return out

@@ -26,7 +26,8 @@ from typing import Dict, NamedTuple, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu",
-            "flash_attention_tc.cu", "ssm_scan.cu")
+            "flash_attention_tc.cu", "ssm_scan.cu", "rmsnorm_bwd.cu",
+            "flash_attention_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: ``--fmad=false`` keeps every multiply and add rounding on its own (no
@@ -87,6 +88,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention_tc.restype = _I
     lib.repro_ssm_scan.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.repro_ssm_scan.restype = _I
+    lib.repro_rmsnorm_bwd.argtypes = [_P] * 6 + [_LL, _I, _F, _F, _I, _I,
+                                                 _P]
+    lib.repro_rmsnorm_bwd.restype = _I
+    lib.repro_flash_attention_bwd.argtypes = [_P] * 9 + [_I] * 6 + [_F] + \
+        [_I] * 3 + [_P]
+    lib.repro_flash_attention_bwd.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -44,6 +44,16 @@ Any other pair raises.  Every launch counts under
 ``LAUNCHES["flash_attention"]``; the tensor-core kernel's also under
 ``LAUNCHES["flash_attention_tc"]``.  A failed build or launch raises: no
 variant falls back to another.
+
+Training: under grad mode, with q, k or v requiring a gradient,
+:func:`flash_attention` runs through :class:`FlashAttentionFunction`,
+which saves q, k, v and the output and whose backward is
+:func:`flash_attention_bwd`: the hand-written SIMT kernel
+``csrc/flash_attention_bwd.cu`` for CUDA tensors (any pair of
+:data:`HEAD_DIMS` and fp32 or bf16, under
+``LAUNCHES["flash_attention_bwd"]``), :func:`flash_attention_bwd_plain`
+for CPU ones.  The forward kernels are unchanged: the backward
+recomputes the softmax statistics from q and k.
 """
 
 from __future__ import annotations
@@ -82,7 +92,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Kernel launches, counted where each launch happens: every launch under
 #: ``flash_attention``, the tensor-core kernel's also under
 #: ``flash_attention_tc``.
-LAUNCHES: Counter = Counter(flash_attention=0, flash_attention_tc=0)
+LAUNCHES: Counter = Counter(flash_attention=0, flash_attention_tc=0,
+                            flash_attention_bwd=0)
 
 
 def kernel_variant(dtype: torch.dtype, dh: int,
@@ -151,6 +162,19 @@ def _check_shapes(q, k, v):
     return b, h, hkv, sq, sk, dh
 
 
+def _tile_keep(q_pos: torch.Tensor, k0: int, bk: int, causal: bool,
+               window: int) -> torch.Tensor:
+    """``(rows, bk)`` keep-mask of the query positions against keys
+    ``k0 .. k0+bk-1``."""
+    rel = q_pos[:, None] - torch.arange(k0, k0 + bk, device=q_pos.device)
+    keep = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        keep &= rel >= 0
+    if window > 0:
+        keep &= rel < window
+    return keep
+
+
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
                           block_kv: int = BLOCK_KV) -> torch.Tensor:
     """The kernel's online softmax as a torch loop over kv tiles of
@@ -170,13 +194,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
         kb = k[:, :, k0:k0 + bk].float()
         vb = v[:, :, k0:k0 + bk]
         s = (qf @ kb.transpose(-1, -2)) * scale
-        rel = q_pos[:, None] - torch.arange(k0, k0 + bk, device=q.device)
-        keep = torch.ones_like(rel, dtype=torch.bool)
-        if causal:
-            keep &= rel >= 0
-        if window > 0:
-            keep &= rel < window
-        s = torch.where(keep, s, MASKED)
+        s = torch.where(_tile_keep(q_pos, k0, bk, causal, window), s, MASKED)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
@@ -231,10 +249,146 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
     return out
 
 
+def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
+                              window: int = 0, block_kv: int = BLOCK_KV):
+    """The backward kernel's algorithm as a torch loop over kv tiles of
+    ``min(block_kv, Sk)`` keys (all query rows at once): ``(dq, dk, dv)``
+    in the inputs' types.
+
+    First the statistics: the row max ``m`` and sum ``l`` of the
+    forward's online softmax, again from q and k, and ``D = rowsum(do *
+    o)`` from the saved output; then for each kv tile ``p = exp(s - m) /
+    max(l, 1e-30)``, ``dv = p^T do``, ``dp = do v^T``, ``ds = p * (dp -
+    D) * scale``, ``dk = ds^T q`` and ``dq += ds k``, in fp32.  The
+    forward's rounding of p to v's type counts as the identity (as
+    autodiff of the reference takes it)."""
+    b, h, hkv, sq, sk, dh = _check_shapes(q, k, v)
+    bk = min(block_kv, sk)
+    if sk % bk:
+        raise ValueError(f"Sk={sk} must be a multiple of the kv block {bk}")
+    g = h // hkv
+    scale = softmax_scale(dh)
+    qf = q.reshape(b, hkv, g * sq, dh).float()
+    dof = do.reshape(b, hkv, g * sq, dh).float()
+    dd = (dof * o.reshape(b, hkv, g * sq, dh).float()).sum(-1, keepdim=True)
+    q_pos = torch.arange(sq, device=q.device).repeat(g)
+    m = torch.full((b, hkv, g * sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    tiles = []
+    for k0 in range(0, sk, bk):
+        kb = k[:, :, k0:k0 + bk].float()
+        keep = _tile_keep(q_pos, k0, bk, causal, window)
+        s = torch.where(keep, (qf @ kb.transpose(-1, -2)) * scale, MASKED)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1,
+                                                               keepdim=True)
+        m = m_new
+        tiles.append((k0, kb, keep))
+    linv = 1.0 / l.clamp(min=1e-30)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, hkv, sk, dh), device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0, kb, keep in tiles:
+        vb = v[:, :, k0:k0 + bk].float()
+        s = torch.where(keep, (qf @ kb.transpose(-1, -2)) * scale, MASKED)
+        p = torch.exp(s - m) * linv
+        dp = dof @ vb.transpose(-1, -2)
+        ds = p * (dp - dd) * scale
+        dv[:, :, k0:k0 + bk] = p.transpose(-1, -2) @ dof
+        dk[:, :, k0:k0 + bk] = ds.transpose(-1, -2) @ qf
+        dq += ds @ kb
+    return (dq.view(b, h, sq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, causal: bool = True,
+                             window: int = 0):
+    """Launch the backward kernel (``csrc/flash_attention_bwd.cu``):
+    contiguous q, k, v, the forward's output o and its gradient do, of
+    one type (fp32 or bf16) on one CUDA device, Sq and Sk multiples of 64,
+    dh in :data:`HEAD_DIMS`.  Returns ``(dq, dk, dv)``."""
+    from repro_torch.kernels._build import check, load_library
+
+    b, h, hkv, sq, sk, dh = _check_shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must have q's shape {tuple(q.shape)}, "
+                         f"got {tuple(o.shape)} and {tuple(do.shape)}")
+    for t in (q, k, v, o, do):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"the CUDA kernel needs q, k, v, o, do on one "
+                             f"CUDA device, got {t.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"the flash backward kernel takes float32 or "
+                             f"bfloat16 tensors of one type, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the flash backward kernel takes contiguous "
+                             "tensors")
+    if sq % BLOCK_Q or sk % BLOCK_KV or sq == 0 or sk == 0:
+        raise ValueError(f"Sq={sq} and Sk={sk} must be positive multiples "
+                         f"of the kernel's tiles ({BLOCK_Q}, {BLOCK_KV})")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the flash backward kernel takes dh in "
+                         f"{HEAD_DIMS}, got {dh}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    lib = load_library().lib
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ws.data_ptr(), b, h, hkv, sq, sk, dh, softmax_scale(dh),
+            int(bool(causal)), int(window), _DTYPES[q.dtype], stream)
+    check(code, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True, window: int = 0,
+                        impl: Optional[str] = None):
+    """Dispatch the backward: the kernel for CUDA tensors, the plain loop
+    for CPU ones."""
+    if resolve_impl(impl, q) == "plain":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal, window)
+    return flash_attention_bwd_cuda(q, k, v, o, do.contiguous(), causal,
+                                    window)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` with its backward
+    (:func:`flash_attention_bwd`); ``impl`` is resolved once and serves
+    both directions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, impl: str):
+        if impl == "plain":
+            out = flash_attention_plain(q, k, v, causal, window)
+        else:
+            out = flash_attention_cuda(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window, ctx.impl = causal, window, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, ctx.causal,
+                                         ctx.window, ctx.impl)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     impl: Optional[str] = None) -> torch.Tensor:
     """Dispatch (see :func:`~repro_torch.kernels.power_step.resolve_impl`):
-    the kernel for CUDA tensors, the plain loop for CPU ones."""
-    if resolve_impl(impl, q) == "plain":
+    the kernel for CUDA tensors, the plain loop for CPU ones; under grad
+    mode, with an input that requires a gradient, through
+    :class:`FlashAttentionFunction`."""
+    which = resolve_impl(impl, q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window, which)
+    if which == "plain":
         return flash_attention_plain(q, k, v, causal, window)
     return flash_attention_cuda(q, k, v, causal, window)

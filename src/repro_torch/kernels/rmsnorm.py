@@ -27,6 +27,14 @@ when ``x`` is not on the current device, and packs the arguments into
 one buffer that crosses ``ctypes`` as a pointer (:data:`_ARGS`).  It
 launches on PyTorch's current stream, allocates nothing but its output
 and never synchronises, so a CUDA graph can capture it.
+
+Training: under grad mode, with ``x`` or ``gamma`` requiring a gradient,
+:func:`rmsnorm` runs through :class:`RmsnormFunction`, whose backward is
+:func:`rmsnorm_bwd`: the hand-written kernel ``csrc/rmsnorm_bwd.cu`` for
+CUDA tensors (its own ``LAUNCHES["rmsnorm_bwd"]``), the plain
+:func:`rmsnorm_bwd_plain` for CPU ones.  Autograd cannot see through a
+``ctypes`` launch, so without it the kernel's output would be a
+constant.  The forward launch path above is unchanged.
 """
 
 from __future__ import annotations
@@ -56,8 +64,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: layer form (native alignment, as the C struct lays it out).
 _ARGS = struct.Struct("@PPPqiffii")
 
+#: Rows a block of the backward kernel walks (its share of dgamma is
+#: summed over them in row order, then the blocks' shares in block order).
+BWD_ROWS = 16
+
 #: Kernel launches, counted where each launch happens.
-LAUNCHES: Counter = Counter(rmsnorm=0)
+LAUNCHES: Counter = Counter(rmsnorm=0, rmsnorm_bwd=0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,28 +86,33 @@ def _butterfly(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _sum_squares(xf: torch.Tensor, vec: int,
-                 threads: int = THREADS) -> torch.Tensor:
-    """``(R, d)`` fp32 -> ``(R, 1)`` sum of squares in the kernel's order,
-    with chunks of ``vec`` elements: thread ``t`` adds the squares of the
-    elements of its chunks ``t``, ``t + threads``, ... chunk by chunk, in
-    element order (zero padding past ``d`` adds nothing); each warp of 32
-    threads adds its lanes with a butterfly, and the warps' partials go
-    through one more.  The squares are laid out as (R, chunk slot,
-    element, thread), so each add takes one contiguous (R, threads)
-    slice."""
-    r, d = xf.shape
+def _row_sum(v: torch.Tensor, vec: int,
+             threads: int = THREADS) -> torch.Tensor:
+    """``(R, d)`` fp32 -> ``(R, 1)`` sum of each row in the kernel's
+    order, with chunks of ``vec`` elements: thread ``t`` adds the elements
+    of its chunks ``t``, ``t + threads``, ... chunk by chunk, in element
+    order (zero padding past ``d`` adds nothing); each warp of 32 threads
+    adds its lanes with a butterfly, and the warps' partials go through
+    one more.  The values are laid out as (R, chunk slot, element,
+    thread), so each add takes one contiguous (R, threads) slice."""
+    r, d = v.shape
     slots = -(-d // (vec * threads))
-    xp = F.pad(xf, (0, slots * threads * vec - d))
-    xt = xp.view(r, slots, threads, vec).transpose(2, 3)
-    sq = torch.mul(xt, xt, out=xf.new_empty(r, slots, vec, threads))
-    sq = sq.view(r, slots * vec, threads)
-    acc = sq[:, 0]
+    vp = F.pad(v, (0, slots * threads * vec - d))
+    vt = vp.view(r, slots, threads, vec).transpose(2, 3)
+    vt = vt.reshape(r, slots * vec, threads)
+    acc = vt[:, 0]
     for k in range(1, slots * vec):
-        acc = acc + sq[:, k]
+        acc = acc + vt[:, k]
     warps = threads // 32
     partial = _butterfly(acc.reshape(r * warps, 32)).view(r, warps)
     return _butterfly(F.pad(partial, (0, 32 - warps)))
+
+
+def _sum_squares(xf: torch.Tensor, vec: int,
+                 threads: int = THREADS) -> torch.Tensor:
+    """``(R, d)`` fp32 -> ``(R, 1)`` sum of squares in the kernel's order
+    (:func:`_row_sum` of the squares)."""
+    return _row_sum(xf * xf, vec, threads)
 
 
 def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
@@ -158,11 +175,131 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
     return out
 
 
+def rmsnorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                      dy: torch.Tensor, eps: float = 1e-5,
+                      layer_form: bool = True):
+    """The backward of :func:`rmsnorm_plain` in the backward kernel's
+    order: ``(dx, dgamma)``.
+
+    With ``r`` recomputed from ``x`` as the forward does, ``xh = x * r``
+    and ``g = dy * gamma`` (fp32), ``dx = r * (g - xh * mean(g * xh))``
+    (the rounding of the forward's output taken as the identity, as
+    autodiff of the reference does), in ``x``'s type; ``dgamma`` sums
+    ``dy * y0`` over the rows in fp32, ``y0`` the forward's ``x * r``
+    rounded to ``x``'s type in the layer's form (unrounded in the other),
+    in ``gamma``'s type.  Both row sums run in the kernel's order
+    (:func:`_row_sum`); dgamma's rows in blocks of :data:`BWD_ROWS`, each
+    block's rows in order, then the blocks in order."""
+    d = x.shape[-1]
+    vec = 16 // x.element_size()
+    xf = x.reshape(-1, d).float()
+    dyf = dy.reshape(-1, d).float()
+    r = torch.sqrt(_sum_squares(xf, vec) * _inv(d) + eps).reciprocal()
+    xh = xf * r
+    g = dyf * gamma.float()
+    mean = _row_sum(g * xh, vec) * _inv(d)
+    dx = (r * (g - xh * mean)).to(x.dtype).view(x.shape)
+    part = dyf * (xh.to(x.dtype).float() if layer_form else xh)
+    rows = part.shape[0]
+    blocks = -(-rows // BWD_ROWS)
+    part = F.pad(part, (0, 0, 0, blocks * BWD_ROWS - rows))
+    part = part.view(blocks, BWD_ROWS, d)
+    acc = part[:, 0]
+    for i in range(1, BWD_ROWS):
+        acc = acc + part[:, i]
+    dgamma = acc[0]
+    for b in range(1, blocks):
+        dgamma = dgamma + acc[b]
+    return dx, dgamma.to(gamma.dtype)
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5, layer_form: bool = True):
+    """Launch the backward kernel (``csrc/rmsnorm_bwd.cu``): ``x`` and
+    ``dy`` contiguous of one shape, ``gamma (d,)``, one type (fp32 or
+    bf16) on one CUDA device.  Returns ``(dx, dgamma)``."""
+    from repro_torch.kernels._build import check, load_library
+
+    if not (x.is_cuda and gamma.device == x.device
+            and dy.device == x.device):
+        raise ValueError(f"the CUDA kernel needs x, gamma and dy on one CUDA "
+                         f"device, got {x.device}, {gamma.device} and "
+                         f"{dy.device}")
+    code = _DTYPES.get(x.dtype)
+    if code is None or gamma.dtype != x.dtype or dy.dtype != x.dtype:
+        raise ValueError(f"the rmsnorm backward kernel takes float32 or "
+                         f"bfloat16 x, gamma and dy of one type, got "
+                         f"{x.dtype}, {gamma.dtype} and {dy.dtype}")
+    d = x.shape[-1] if x.dim() else 0
+    if d < 1 or gamma.shape != (d,) or dy.shape != x.shape:
+        raise ValueError(f"x (..., d), gamma (d,) and dy of x's shape, got "
+                         f"{tuple(x.shape)}, {tuple(gamma.shape)} and "
+                         f"{tuple(dy.shape)}")
+    if not (x.is_contiguous() and gamma.is_contiguous()
+            and dy.is_contiguous()):
+        raise ValueError("the rmsnorm backward kernel takes contiguous "
+                         "tensors")
+    rows = x.numel() // d
+    if not 1 <= rows < 2 ** 31:
+        raise ValueError(f"the rmsnorm backward kernel takes 1 to 2^31 - 1 "
+                         f"rows, got {rows}")
+    lib = load_library().lib
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    part = torch.empty((-(-rows // BWD_ROWS), d), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_rmsnorm_bwd(x.data_ptr(), gamma.data_ptr(),
+                                    dy.data_ptr(), dx.data_ptr(),
+                                    dgamma.data_ptr(), part.data_ptr(), rows,
+                                    d, _inv(d), eps, code,
+                                    1 if layer_form else 0, stream)
+    check(err, "rmsnorm_bwd")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dgamma
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5, layer_form: bool = True,
+                impl: Optional[str] = None):
+    """Dispatch the backward: the kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    if resolve_impl(impl, x) == "plain":
+        return rmsnorm_bwd_plain(x, gamma, dy, eps, layer_form)
+    return rmsnorm_bwd_cuda(x, gamma, dy.contiguous(), eps, layer_form)
+
+
+class RmsnormFunction(torch.autograd.Function):
+    """:func:`rmsnorm` with its backward (:func:`rmsnorm_bwd`); ``impl``
+    is resolved once and serves both directions."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps: float, layer_form: bool, impl: str):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps, ctx.layer_form, ctx.impl = eps, layer_form, impl
+        if impl == "plain":
+            return rmsnorm_plain(x, gamma, eps, layer_form)
+        return rmsnorm_cuda(x, gamma, eps, layer_form)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = rmsnorm_bwd(x, gamma, dy, ctx.eps, ctx.layer_form,
+                                 ctx.impl)
+        return dx, dgamma, None, None, None
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
             layer_form: bool = False,
             impl: Optional[str] = None) -> torch.Tensor:
     """Dispatch (see :func:`~repro_torch.kernels.power_step.resolve_impl`):
-    the kernel for CUDA tensors, the plain version for CPU ones."""
-    if resolve_impl(impl, x) == "plain":
+    the kernel for CUDA tensors, the plain version for CPU ones; under
+    grad mode, with an input that requires a gradient, through
+    :class:`RmsnormFunction`."""
+    which = resolve_impl(impl, x)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
+        return RmsnormFunction.apply(x, gamma, eps, layer_form, which)
+    if which == "plain":
         return rmsnorm_plain(x, gamma, eps, layer_form)
     return rmsnorm_cuda(x, gamma, eps, layer_form)

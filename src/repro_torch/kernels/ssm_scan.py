@@ -109,17 +109,16 @@ def ssm_scan_plain(x, a, dt, Bm, Cm,
     bf = Bm.float().transpose(0, 1)[:, :, None, None, :]  # (S, B, 1, 1, N)
     cf = Cm.float().transpose(0, 1)[:, :, None, None, :]
     y = torch.empty((s, b, h, p), dtype=torch.float32, device=x.device)
-    hs = torch.empty((ch, b, h, p, n), dtype=torch.float32, device=x.device)
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     for t0 in range(0, s, ch):
         tile = slice(t0, t0 + ch)
         u = dtf[tile] * (xf[tile] * bf[tile])             # (T, B, H, P, N)
         e = ea[tile]
-        for i in range(ch):
-            torch.mul(e[i], hs[i - 1] if i else state, out=hs[i])
-            hs[i] += u[i]
-        state = hs[ch - 1].clone()
-        y[tile] = _lane_sum(hs * cf[tile])
+        steps = []
+        for i in range(ch):       # out of place: autograd can follow it
+            state = e[i] * state + u[i]
+            steps.append(state)
+        y[tile] = _lane_sum(torch.stack(steps) * cf[tile])
     return y.permute(1, 2, 0, 3).contiguous()
 
 
@@ -166,7 +165,16 @@ def ssm_scan(x, a, dt, Bm, Cm, *, chunk: int = DEFAULT_CHUNK,
     """x ``(B, H, S, P)``; a/dt ``(B, H, S)``; Bm/Cm ``(B, S, N)`` -> y
     ``(B, H, S, P)`` fp32.  Dispatch (see
     :func:`~repro_torch.kernels.power_step.resolve_impl`): the kernel for
-    CUDA tensors, the plain version for CPU ones."""
+    CUDA tensors, the plain version (differentiable by autograd) for CPU
+    ones.  The kernel raises under grad mode when an input requires a
+    gradient: it has no backward yet."""
     if resolve_impl(impl, x) == "plain":
         return ssm_scan_plain(x, a, dt, Bm, Cm, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, a, dt, Bm, Cm)):
+        # the kernel has no backward yet: autograd would take its output
+        # for a constant and return wrong gradients without a word
+        raise RuntimeError("ssm_scan: the CUDA kernel has no backward yet; "
+                           "it cannot run under grad mode with inputs that "
+                           "require a gradient")
     return ssm_scan_cuda(x, a, dt, Bm, Cm, chunk)

@@ -27,7 +27,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """An inference weight: a parameter that takes no gradient."""
+    """A weight, created as a parameter that takes no gradient: serving
+    needs none.  The trainer turns gradients on for the whole model with
+    ``model.requires_grad_(True)``."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -61,6 +63,21 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
         gamma = gamma.to(x.dtype)
     return _rmsnorm.rmsnorm(x.contiguous(), gamma.contiguous(), eps,
                             layer_form=True, impl=impl)
+
+
+# ------------------------------------------------------------------- loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore_id: int = -1) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32 over the positions whose label
+    is not ``ignore_id`` (0 when there is none).  The reference extracts
+    the gold logit with a one-hot contraction (for vocab-sharded logits);
+    on one device a gather takes the same value."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ------------------------------------------------------------------- rope

@@ -33,6 +33,23 @@ and ``(n_super, per_super, ...)`` leaves) and loops over them.  Its
 
 ``impl`` (``None`` | ``"plain"`` | ``"cuda"``) is handed to every
 kernel's dispatch.  ``decode_step`` writes the cache in place.
+
+Training: :func:`loss_fn` is ``forward`` plus the fp32 cross-entropy (and
+the MoE auxiliary loss).  The weights are created without gradients (for
+serving); the trainer turns them on with ``model.requires_grad_(True)``.
+Under grad mode the norms and flash attention run through their
+``autograd.Function``s, whose backwards are kernels too.  With
+``cfg.remat`` each block (dense, vlm, moe, encoder), each Mamba2 layer and
+each super-block (hybrid), each mLSTM layer and each super-block (ssm) is
+recomputed in the backward (``torch.utils.checkpoint``, non-reentrant), as
+the reference's ``jax.checkpoint`` bodies are.  One training step of a
+dense model at ``S >= 2048`` with ``remat`` launches ``2 L + 1`` rmsnorm
+and ``L`` flash_attention in the forward, ``2 L`` rmsnorm and ``L``
+flash_attention again in the recompute (every block's norms and attention
+lie before its last saved activation), and ``2 L + 1`` rmsnorm_bwd and
+``L`` flash_attention_bwd: ``4 L + 1``, ``2 L``, ``2 L + 1`` and ``L`` in
+all.  The hybrid family's ``ssm_scan`` kernel has no backward yet and
+raises under grad on the card.
 """
 
 from __future__ import annotations
@@ -41,13 +58,14 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (Attention, attention,
                                           attention_decode, attn_init)
 from repro_torch.models.layers import (MLP, dense_init, dtype_of,
                                        embed_init, frozen, mlp_init, rmsnorm,
-                                       rmsnorm_init)
+                                       rmsnorm_init, softmax_xent)
 from repro_torch.models.moe import MoE, moe_ffn, moe_init
 from repro_torch.models.ssm import SSM, ssm_decode, ssm_forward, ssm_init
 from repro_torch.models.xlstm import (MLSTM, SLSTM, mlstm_decode,
@@ -300,6 +318,36 @@ def embed_inputs(cfg: ModelConfig, model: LM,
     return model.embed.to(cdt)[batch["tokens"]]
 
 
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` under grad mode, recomputed in the
+    backward instead of keeping its activations."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _mamba_layer(cfg: ModelConfig, blk: MambaBlock, x: torch.Tensor,
+                 impl: Optional[str]) -> torch.Tensor:
+    return x + ssm_forward(blk.ssm, rmsnorm(x, blk.ln, cfg.norm_eps, impl),
+                           chunk=cfg.ssm.chunk, impl=impl, **_ssm_kwargs(cfg))
+
+
+def _hybrid_super(cfg: ModelConfig, shared: Block, sup, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  impl: Optional[str]) -> torch.Tensor:
+    for blk in sup:
+        x = _remat(cfg, _mamba_layer, cfg, blk, x, impl)
+    x, _ = attn_block(cfg, shared, x, positions, True, impl)
+    return x
+
+
+def _xlstm_super(cfg: ModelConfig, sup, sblk: CellBlock, x: torch.Tensor,
+                 impl: Optional[str]) -> torch.Tensor:
+    for blk in sup:
+        x = _remat(cfg, _cell_forward, cfg, blk, x, impl)
+    return _cell_forward(cfg, sblk, x, impl)
+
+
 def forward(cfg: ModelConfig, model: LM,
             batch: Dict[str, torch.Tensor], impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -313,23 +361,29 @@ def forward(cfg: ModelConfig, model: LM,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for sup in model.mamba:
-            for blk in sup:
-                x = x + ssm_forward(blk.ssm,
-                                    rmsnorm(x, blk.ln, cfg.norm_eps, impl),
-                                    chunk=cfg.ssm.chunk, impl=impl,
-                                    **_ssm_kwargs(cfg))
-            x, _ = attn_block(cfg, model.shared, x, positions, True, impl)
+            x = _remat(cfg, _hybrid_super, cfg, model.shared, sup, x,
+                       positions, impl)
     elif cfg.family == "ssm":
         for sup, sblk in zip(model.mlstm, model.slstm):
-            for blk in sup:
-                x = _cell_forward(cfg, blk, x, impl)
-            x = _cell_forward(cfg, sblk, x, impl)
+            x = _remat(cfg, _xlstm_super, cfg, sup, sblk, x, impl)
     else:
         for blk in model.blocks:
-            x, aux_l = attn_block(cfg, blk, x, positions, cfg.causal, impl)
+            x, aux_l = _remat(cfg, attn_block, cfg, blk, x, positions,
+                              cfg.causal, impl)
             if aux_l is not None:
                 aux = aux + aux_l
     return _logits(cfg, model, x, impl), aux
+
+
+def loss_fn(cfg: ModelConfig, model: LM, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01, impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(``xent + aux_weight * moe_aux``, ``{"xent", "moe_aux"}``):
+    :func:`forward` and :func:`~repro_torch.models.layers.softmax_xent`
+    against ``batch["labels"] (B, S)`` (``-1`` masked)."""
+    logits, aux = forward(cfg, model, batch, impl)
+    loss = softmax_xent(logits, batch["labels"])
+    return loss + aux_weight * aux, {"xent": loss, "moe_aux": aux}
 
 
 # ------------------------------------------------------------------ decode

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: ``power_step`` (with ``waterfill``, and the whole-row wave loop
 ``wave_run`` against the engine's plain and per-wave paths), ``rmsnorm``,
-``flash_attention`` and ``ssm_scan``.  Every test here needs an NVIDIA
+``flash_attention`` and ``ssm_scan``, the backward kernels
+(``rmsnorm_bwd``, ``flash_attention_bwd``) and one training loss and
+backward of a smoke model on the card.  Every test here needs an NVIDIA
 GPU with ``nvcc`` and skips elsewhere; the file imports neither ``jax``
 nor ``repro``, so it runs on the GPU machine as it is:
 
@@ -775,3 +777,116 @@ def test_soft_makespan_on_the_card_matches_the_cpu(cuda_device):
         (v_cpu, g_cpu), (v_gpu, g_gpu) = out["cpu"], out["cuda"]
         assert v_gpu == pytest.approx(v_cpu, rel=1e-9)
         assert np.linalg.norm(g_gpu - g_cpu) <= 1e-7 * np.linalg.norm(g_cpu)
+
+
+# ------------------------------------------------------ backward kernels
+@pytest.mark.parametrize("layer_form", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4096), (4096, 4096), (1001, 4096),
+                                   (3, 5, 1001), (17, 20000)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
+                                          layer_form):
+    """The backward kernel against its plain twin (the same sums in the
+    same order), one launch counted; dgamma the same from run to run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = (3 * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+    g = (1 + torch.randn(shape[-1], generator=gen,
+                         device=cuda_device)).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    before = rn.LAUNCHES["rmsnorm_bwd"]
+    dx, dg = rn.rmsnorm_bwd(x, g, dy, layer_form=layer_form)
+    again = rn.rmsnorm_bwd(x, g, dy, layer_form=layer_form)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm_bwd"] == before + 2
+    want = rn.rmsnorm_bwd(x, g, dy, layer_form=layer_form, impl="plain")
+    for got, ref, rerun in zip((dx, dg), want, again):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        assert torch.equal(got, rerun)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype", [
+    (1, 4, 1, 128, 16, True, 0, torch.float32),
+    (1, 8, 2, 192, 32, False, 0, torch.bfloat16),
+    (2, 4, 4, 256, 64, True, 100, torch.bfloat16),
+    (1, 4, 2, 256, 80, False, 0, torch.float32),
+    (1, 4, 1, 320, 128, True, 0, torch.bfloat16),
+    (1, 2, 1, 128, 256, True, 70, torch.float32),
+    (1, 2, 2, 128, 256, False, 0, torch.bfloat16),
+])
+def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
+                                        causal, window, dtype):
+    """The backward kernel against its plain twin on the forward
+    kernel's output: every head dim, GQA, masks; the same from run to
+    run (no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((b, h, s, dh), (b, hkv, s, dh),
+                             (b, hkv, s, dh)))
+    do = torch.randn((b, h, s, dh), generator=gen,
+                     device=cuda_device).to(dtype)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = fa.flash_attention_bwd(q, k, v, o, do, causal, window,
+                                  impl="plain")
+    for g, w, r in zip(got, want, again):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+        assert torch.equal(g, r)
+
+
+def test_train_grads_on_card_match_plain(cuda_device):
+    """One loss and backward of the llama smoke model in bf16 at dh=64,
+    S=2048, remat on: every kernel launched as the model module's
+    training formula says (forward, recompute, backward), and the loss
+    and every gradient within 2e-2 normwise of the plain path's."""
+    from repro_torch.models import loss_fn
+
+    cfg = replace(get_smoke("llama3-8b"), dtype="bfloat16",
+                  param_dtype="bfloat16", head_dim=64, remat=True)
+    model = init_params(cfg, torch.Generator(device=cuda_device)
+                        .manual_seed(0)).requires_grad_(True)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                                     device=cuda_device),
+             "labels": torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                                     device=cuda_device)}
+    runs = {}
+    for impl in (None, "plain"):
+        before = {**rn.LAUNCHES, **fa.LAUNCHES}
+        loss, _ = loss_fn(cfg, model, batch, impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        after = {**rn.LAUNCHES, **fa.LAUNCHES}
+        runs[impl] = (float(loss.detach()), {n: p.grad.clone()
+                                    for n, p in model.named_parameters()},
+                      {k: after[k] - before[k] for k in after})
+        model.zero_grad(set_to_none=True)
+    L = cfg.n_layers
+    assert runs[None][2] == {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+                             "flash_attention": 2 * L,
+                             "flash_attention_tc": 2 * L,
+                             "flash_attention_bwd": L}
+    assert not any(runs["plain"][2].values())
+    assert runs[None][0] == pytest.approx(runs["plain"][0], rel=2e-2)
+    for name, g in runs[None][1].items():
+        w = runs["plain"][1][name].double()
+        assert float((g.double() - w).norm()) <= 2e-2 * float(w.norm()), name
+
+
+def test_ssm_scan_on_card_raises_under_grad(cuda_device):
+    """No backward kernel yet: the hybrid family cannot train on the card,
+    and says so instead of returning wrong gradients."""
+    x, a, dt, bm, cm = _scan_inputs(1, 2, 128, 16, 8, torch.float32,
+                                    cuda_device)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.ssm_scan(x, a, dt, bm, cm, chunk=64)
+    with torch.no_grad():
+        assert ss.ssm_scan(x, a, dt, bm, cm, chunk=64).shape == (1, 2, 128,
+                                                                 16)

@@ -1,0 +1,221 @@
+"""The backward kernels' plain twins against the JAX reference's gradients,
+on the CPU.
+
+* ``rmsnorm_bwd_plain`` (the backward kernel's order) against ``jax.vjp``
+  of ``repro.models.layers.rmsnorm`` (the model layer's rounding form) and
+  against torch autograd of ``rmsnorm_plain``.  fp32 at rtol = atol =
+  1e-5 (both sides compute ``x * r`` and the row sums in fp32, in other
+  orders); bf16 inputs and cotangents with dx and dgamma rounded to bf16,
+  held normwise at 2e-2: the reference differentiates through its bf16
+  rounding of ``x * r`` and of the product with gamma, and its dx sums
+  bf16-rounded terms, where the port sums in fp32.
+* ``flash_attention_bwd_plain`` against ``jax.vjp`` of
+  ``repro.models.attention.blocked_attend`` (causal, full and windowed;
+  GQA groups 1 and 4; fp32 and bf16; dh 16, 64, 80 and 128 at S=128) and
+  against torch autograd of ``flash_attention_plain``.  fp32 at rtol =
+  atol = 1e-5; bf16 normwise at 2e-2: the reference rounds p to bf16
+  before the PV product and its cotangents to bf16 at each cast, the
+  backward keeps p in fp32 (see the kernel's note).
+* The autograd dispatch: under grad, ``rmsnorm`` and ``flash_attention``
+  on CPU tensors run their ``autograd.Function`` with the plain backward
+  (no kernel launch counted), and ``ssm_scan`` routed to the kernel
+  under grad raises before any launch.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import attention as ref_attention  # noqa: E402
+from repro.models import layers as ref_layers  # noqa: E402
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+
+F32 = 1e-5
+BF16_NORMWISE = 2e-2
+DT = {"float32": (torch.float32, jnp.float32),
+      "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _np32(t):
+    return np.asarray(t, dtype=np.float32) if not isinstance(
+        t, torch.Tensor) else t.detach().float().numpy()
+
+
+def _close(got, want, dtype):
+    g, w = _np32(got), _np32(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, rtol=F32, atol=F32)
+    else:
+        assert np.linalg.norm(g - w) <= BF16_NORMWISE * np.linalg.norm(w)
+
+
+# ------------------------------------------------------------------ rmsnorm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 7, 64), (33, 300), (16, 4096)])
+def test_rmsnorm_bwd_matches_jax(shape, dtype):
+    td, jd = DT[dtype]
+    rng = np.random.default_rng(0)
+    x = (3 * rng.standard_normal(shape)).astype(np.float32)
+    g = (1 + rng.standard_normal(shape[-1])).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    xt, gt, dyt = (torch.as_tensor(a).to(td) for a in (x, g, dy))
+    dx, dg = rn.rmsnorm_bwd_plain(xt, gt, dyt, 1e-5, layer_form=True)
+    assert dx.dtype == td and dg.dtype == td and dx.shape == shape
+    _, vjp = jax.vjp(lambda a, b: ref_layers.rmsnorm(a, b, 1e-5),
+                     jnp.asarray(x).astype(jd), jnp.asarray(g).astype(jd))
+    rdx, rdg = vjp(jnp.asarray(dy).astype(jd))
+    _close(dx, rdx, dtype)
+    _close(dg, rdg, dtype)
+    # torch autograd of the plain forward (the same rounding form)
+    xa, ga = xt.clone().requires_grad_(), gt.clone().requires_grad_()
+    rn.rmsnorm_plain(xa, ga, 1e-5, layer_form=True).backward(dyt)
+    _close(dx, xa.grad, dtype)
+    _close(dg, ga.grad, dtype)
+
+
+def test_rmsnorm_bwd_both_forms_and_order():
+    """The Pallas form differs from the layer's only in dgamma's rounding
+    of ``x * r``; in fp32 the two are one.  dgamma sums rows in blocks of
+    ``BWD_ROWS``, each block's rows in order, then the blocks in order:
+    explicit numpy loops in that order give it bit for bit."""
+    rng = np.random.default_rng(1)
+    rows, d = 37, 40
+    x = torch.as_tensor(rng.standard_normal((rows, d)), dtype=torch.float32)
+    g = torch.as_tensor(rng.standard_normal(d), dtype=torch.float32)
+    dy = torch.as_tensor(rng.standard_normal((rows, d)), dtype=torch.float32)
+    a = rn.rmsnorm_bwd_plain(x, g, dy, layer_form=True)
+    b = rn.rmsnorm_bwd_plain(x, g, dy, layer_form=False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    xf = x.numpy()
+    r = (1.0 / np.sqrt(rn._sum_squares(x, 4).numpy() * rn._inv(d)
+                       + np.float32(1e-5))).astype(np.float32)
+    part = dy.numpy() * (xf * r)
+    blocks = []
+    for b0 in range(0, rows, rn.BWD_ROWS):
+        acc = part[b0].copy()
+        for i in range(b0 + 1, min(b0 + rn.BWD_ROWS, rows)):
+            acc = acc + part[i]
+        blocks.append(acc)
+    want = blocks[0]
+    for blk in blocks[1:]:
+        want = want + blk
+    np.testing.assert_allclose(a[1].numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_rmsnorm_function_runs_plain_backward_on_cpu():
+    """Under grad, CPU tensors take the Function with the plain backward:
+    the gradients equal ``rmsnorm_bwd_plain``'s bit for bit, and no kernel
+    launch is counted."""
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal((5, 64)),
+                        dtype=torch.float32).requires_grad_()
+    g = torch.ones(64, requires_grad=True)
+    dy = torch.as_tensor(rng.standard_normal((5, 64)), dtype=torch.float32)
+    before = dict(rn.LAUNCHES)
+    y = rn.rmsnorm(x, g, layer_form=True)
+    assert y.grad_fn is not None and "Rmsnorm" in type(y.grad_fn).__name__
+    y.backward(dy)
+    dx, dg = rn.rmsnorm_bwd_plain(x.detach(), g.detach(), dy)
+    assert torch.equal(x.grad, dx) and torch.equal(g.grad, dg)
+    assert dict(rn.LAUNCHES) == before
+    with torch.no_grad():       # no grad: the forward's own path
+        assert rn.rmsnorm(x, g, layer_form=True).grad_fn is None
+
+
+# ---------------------------------------------------------------- flash
+FLASH_CASES = [(dh, group, dtype, mask)
+               for dh, group, dtype, mask in itertools.product(
+                   (16, 64, 80, 128), (1, 4), ("float32", "bfloat16"),
+                   ("causal", "full", "window"))]
+
+
+def _mask(mask):
+    return {"causal": (True, 0), "full": (False, 0),
+            "window": (True, 48)}[mask]
+
+
+@pytest.mark.parametrize("dh,group,dtype,mask", FLASH_CASES,
+                         ids=[f"dh{d}-g{g}-{t}-{m}"
+                              for d, g, t, m in FLASH_CASES])
+def test_flash_bwd_matches_jax(dh, group, dtype, mask):
+    td, jd = DT[dtype]
+    causal, window = _mask(mask)
+    b, hkv, s = 1, 2, 128
+    h = hkv * group
+    rng = np.random.default_rng(dh + group)
+    q = rng.standard_normal((b, h, s, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, dh)).astype(np.float32)
+    do = rng.standard_normal((b, h, s, dh)).astype(np.float32)
+    qt, kt, vt, dot = (torch.as_tensor(a).to(td) for a in (q, k, v, do))
+    o = fa.flash_attention_plain(qt, kt, vt, causal, window)
+    dq, dk, dv = fa.flash_attention_bwd_plain(qt, kt, vt, o, dot, causal,
+                                              window)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (td, td, td)
+    # the reference's layout: (B, S, H, dh), positions 0..S-1
+    sw = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3)).astype(jd)  # noqa
+    pos = jnp.arange(s)
+    _, vjp = jax.vjp(lambda a, c, e: ref_attention.blocked_attend(
+        a, c, e, pos, pos, causal, window), sw(q), sw(k), sw(v))
+    for got, want in zip((dq, dk, dv), vjp(sw(do))):
+        _close(got, np.asarray(want.astype(jnp.float32)).transpose(
+            0, 2, 1, 3), dtype)
+    # torch autograd of the plain forward loop
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    fa.flash_attention_plain(*leaves, causal, window).backward(dot)
+    for got, leaf in zip((dq, dk, dv), leaves):
+        _close(got, leaf.grad, dtype)
+
+
+def test_flash_function_runs_plain_backward_on_cpu():
+    """Under grad, CPU tensors take the Function: the forward saves its
+    output and the backward equals ``flash_attention_bwd_plain``'s bit for
+    bit; no kernel launch is counted; a kv tile other than the kernel's
+    64 keys gives the same gradients to fp32 rounding."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).requires_grad_()
+               for shape in ((1, 4, 192, 32), (1, 2, 192, 32),
+                             (1, 2, 192, 32)))
+    do = torch.as_tensor(rng.standard_normal((1, 4, 192, 32)),
+                         dtype=torch.float32)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v, causal=True, window=100)
+    out.backward(do)
+    assert dict(fa.LAUNCHES) == before
+    want = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                        out.detach(), do, True, 100)
+    for got, leaf in zip(want, (q, k, v)):
+        assert torch.equal(got, leaf.grad)
+    other = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         out.detach(), do, True, 100,
+                                         block_kv=192)
+    for a, b in zip(want, other):
+        torch.testing.assert_close(a, b, rtol=F32, atol=F32)
+
+
+def test_ssm_scan_kernel_route_raises_under_grad():
+    """The ssm_scan kernel has no backward yet: routed to it under grad
+    with an input that requires a gradient, the dispatch raises before any
+    launch; without grad mode it goes on to the kernel's checks (here a
+    CPU tensor, which the kernel refuses)."""
+    rng = np.random.default_rng(4)
+    f = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(shape), dtype=torch.float32)
+    x, a, dt = f(1, 2, 8, 4).requires_grad_(), -f(1, 2, 8).abs(), f(1, 2, 8)
+    bm, cm = f(1, 8, 4), f(1, 8, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.ssm_scan(x, a, dt, bm, cm, chunk=8, impl="cuda")
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ss.ssm_scan(x, a, dt, bm, cm, chunk=8, impl="cuda")
+    # the plain version stays differentiable by autograd
+    ss.ssm_scan(x, a, dt, bm, cm, chunk=8).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
