@@ -65,11 +65,14 @@ port's two paths:
   between the kernel and the plain path;
 * the training path at full width, llama3-8b with its depth cut to 2 of
   32 layers (S=4096, batch 1, fp32 AdamW state, remat): the backward
-  kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) against their plain
-  twins, step 0's loss and gradients against ``impl="plain"``, 4 steps
-  of ``PowerAwareTrainer`` (``build_trainer(..., device="cuda")``) with
+  kernels (``rmsnorm_bwd``; ``flash_attention_bwd``'s tensor-core kernel,
+  on the trainer's path, and its SIMT kernel) against their plain twins,
+  step 0's loss and gradients against ``impl="plain"``, 4 steps of
+  ``PowerAwareTrainer`` (``build_trainer(..., device="cuda")``) with
   exact launch counts, a checkpoint restored bit for bit by a fresh
-  trainer, the train CLI's failure recovery in its own process, and
+  trainer, the train CLI's failure recovery in its own process (S=64)
+  and 2 CLI steps at S=2048 in another (the fp32 smoke config: the SIMT
+  backward's path, its launch counts printed by the CLI), and
   ``ssm_scan`` refusing to run under grad on the card.
 
 Every path runs with the launch counts set to 0 just before it and read
@@ -2846,6 +2849,7 @@ def expected_launches(cfg) -> dict:
     tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
     want["flash_attention_tc"] = want["flash_attention"] if tc else 0
     want["rmsnorm_bwd"] = want["flash_attention_bwd"] = 0
+    want["flash_attention_bwd_tc"] = 0
     return want
 
 
@@ -2858,19 +2862,24 @@ def expected_train_launches(cfg) -> dict:
     the recompute runs through them), and the backward kernels, one per
     forward call: ``2 L + 1`` rmsnorm_bwd and ``L`` flash_attention_bwd.
     In all ``4 L + 1``, ``2 L`` (all on the tensor-core kernel at bf16 dh
-    128), ``2 L + 1`` and ``L``; no ssm_scan."""
+    128), ``2 L + 1`` and ``L`` (all on the tensor-core backward at bf16
+    dh 128); no ssm_scan."""
     import torch
 
-    from repro_torch.kernels.flash_attention import kernel_variant
+    from repro_torch.kernels.flash_attention import (bwd_kernel_variant,
+                                                     kernel_variant)
 
     n = cfg.n_layers
     require(cfg.family in ("dense", "vlm", "moe", "encoder") and cfg.remat,
             f"{cfg.arch_id}: the training formula is the dense families' "
             f"with remat")
-    tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
+    dtype = getattr(torch, cfg.dtype)
+    tc = kernel_variant(dtype, cfg.dh) == "tc"
+    tc_bwd = bwd_kernel_variant(dtype, cfg.dh) == "tc"
     return {"rmsnorm": 4 * n + 1, "ssm_scan": 0, "flash_attention": 2 * n,
             "flash_attention_tc": 2 * n if tc else 0,
-            "rmsnorm_bwd": 2 * n + 1, "flash_attention_bwd": n}
+            "rmsnorm_bwd": 2 * n + 1, "flash_attention_bwd": n,
+            "flash_attention_bwd_tc": n if tc_bwd else 0}
 
 
 def _launches():
@@ -2883,12 +2892,15 @@ def _launches():
             "flash_attention": fa.LAUNCHES["flash_attention"],
             "flash_attention_tc": fa.LAUNCHES["flash_attention_tc"],
             "rmsnorm_bwd": rn.LAUNCHES["rmsnorm_bwd"],
-            "flash_attention_bwd": fa.LAUNCHES["flash_attention_bwd"]}
+            "flash_attention_bwd": fa.LAUNCHES["flash_attention_bwd"],
+            "flash_attention_bwd_tc": fa.LAUNCHES["flash_attention_bwd_tc"]}
 
 
 #: Device-time groups of a training step's kernels, by name fragment
 #: (first match wins; the rest is "other").
-TRAIN_GROUPS = (("flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_stats")),
+TRAIN_GROUPS = (("flash_attention_bwd_tc", ("bwd_tc_stats", "bwd_tc_dkdv",
+                                            "bwd_tc_dq")),
+                ("flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_stats")),
                 ("flash_attention", ("flash_tc_kernel", "flash_kernel")),
                 ("rmsnorm_bwd", ("rmsnorm_bwd",)),
                 ("rmsnorm", ("rmsnorm_",)),
@@ -3249,6 +3261,11 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2, 4096, 1, 4
 #: Virtual hosts of the trainer's cluster model (the reference CLI's
 #: default).
 TRAIN_HOSTS = 8
+#: The second train CLI run's sequence (its smoke config, fp32 at dh 16):
+#: long enough that attention takes the flash kernels, so that run's
+#: training is the SIMT backward's path.  The recovery run keeps S=64,
+#: the dense attention under autograd.
+TRAIN_CLI_SEQ = 2048
 #: rmsnorm_bwd at the training shape: the norms' rows (B * S) of d_model.
 RMSNORM_BWD_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096)
 #: rmsnorm_bwd's other cases: (rows, d, dtype, layer_form, x offset).
@@ -3260,17 +3277,37 @@ RMSNORM_BWD_CASES = ((RMSNORM_BWD_MAIN[0], 4096, "float32", True, 0),
                      (37, 4096, "bfloat16", True, 1),
                      (16, 20000, "float32", True, 0))
 #: flash_attention_bwd's cases besides the training shape (FLASH_MAIN,
-#: bf16, causal): (shape, dtype, causal, window); every head dim of
-#: HEAD_DIMS, fp32, windowed and non-causal.
-FLASH_BWD_CASES = (((1, 4, 4, 256, 64), "float32", False, 0),
-                   ((2, 8, 2, 512, 64), "bfloat16", True, 0),
-                   ((1, 4, 2, 1024, 128), "bfloat16", True, 256),
-                   ((1, 4, 1, 512, 128), "bfloat16", False, 0),
-                   ((1, 2, 1, 256, 16), "bfloat16", True, 0),
-                   ((1, 2, 1, 256, 32), "float32", True, 100),
-                   ((1, 2, 2, 256, 80), "bfloat16", False, 0),
-                   ((1, 2, 1, 192, 256), "bfloat16", True, 0),
-                   ((1, 2, 1, 192, 256), "float32", False, 70))
+#: bf16, causal): (shape, dtype, causal, window, variant).  The SIMT
+#: kernel's (forced where the table routes the pair to the tensor cores):
+#: every head dim of HEAD_DIMS, fp32, windowed and non-causal.
+FLASH_BWD_CASES = (((1, 4, 4, 256, 64), "float32", False, 0, "simt"),
+                   ((2, 8, 2, 512, 64), "bfloat16", True, 0, "simt"),
+                   ((1, 4, 2, 1024, 128), "bfloat16", True, 256, "simt"),
+                   ((1, 4, 1, 512, 128), "bfloat16", False, 0, "simt"),
+                   ((1, 2, 1, 256, 16), "bfloat16", True, 0, "simt"),
+                   ((1, 2, 1, 256, 32), "float32", True, 100, "simt"),
+                   ((1, 2, 2, 256, 80), "bfloat16", False, 0, "simt"),
+                   ((1, 2, 1, 192, 256), "bfloat16", True, 0, "simt"),
+                   ((1, 2, 1, 192, 256), "float32", False, 70, "simt"),
+                   (FLASH_MAIN, "bfloat16", True, 0, "simt"))
+#: The tensor-core kernel's (the table's route): dh 64 and 128; causal,
+#: full and windowed; GQA groups 1, 4 and 8; 64-row last tiles (S = 64 mod
+#: 128).
+FLASH_BWD_TC_CASES = (((1, 8, 8, 1024, 64), "bfloat16", True, 0, None),
+                      ((1, 16, 4, 1024, 128), "bfloat16", False, 0, None),
+                      ((1, 16, 2, 2048, 128), "bfloat16", True, 512, None),
+                      ((2, 8, 1, 320, 64), "bfloat16", True, 96, None),
+                      ((1, 4, 1, 448, 128), "bfloat16", False, 130, None),
+                      ((1, 32, 8, 2048, 64), "bfloat16", True, 0, None),
+                      ((1, 4, 4, 192, 128), "bfloat16", True, 0, None))
+#: The tensor-core backward against its bf16-operand twin, besides
+#: LM_TOL's elementwise bar: normwise over each 64-row tile of each head
+#: (dq: 64 query rows; dk, dv: 64 keys), the largest tile's
+#: ||kernel - twin|| / ||twin||.  A tile's norm and not the tensor's, so
+#: that a fault confined to one tile of late rows shows (under a causal
+#: mask their gradients are the smallest).  Set from the sound runs'
+#: largest reading and that of a planted fault (PERF.md).
+TC_BWD_TILE_NORMWISE = 2e-3
 
 
 #: How the backward kernels' phases time: the profiler's device sums late
@@ -3359,6 +3396,45 @@ def phase_rmsnorm_bwd_kernel(torch, device):
     return worst, times
 
 
+def _tile_normwise(torch, got, want, rows: int = 64) -> float:
+    """Largest normwise distance of ``got`` from ``want`` (both ``(B, H,
+    S, dh)``) over the tiles of ``rows`` rows of each batch and head:
+    ||got - want|| / ||want|| a tile, in float64."""
+    b, h, s, d = want.shape
+    worst = 0.0
+    for i in range(b * h):
+        g = got.reshape(b * h, s // rows, rows * d)[i].double()
+        w = want.reshape(b * h, s // rows, rows * d)[i].double()
+        ratio = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-300)
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def _planted_tile_fault(torch, fa, q, k, v, o, do, dq, dk):
+    """dq and dk as a kernel that skipped one tile pair would leave them:
+    the share of head 0's last 64 query rows against keys S/2 .. S/2+63
+    (causal, no window; inside the mask) taken out of ``dq`` and ``dk``,
+    in fp32 from the inputs and rounded back to their type."""
+    s, dh = q.shape[2], q.shape[3]
+    i0, j0 = s - 64, s // 2
+    scale = fa.softmax_scale(dh)
+    qi, doi = q[0, 0, i0:].float(), do[0, 0, i0:].float()
+    kj, vj = k[0, 0, j0:j0 + 64].float(), v[0, 0, j0:j0 + 64].float()
+    logits = scale * qi @ k[0, 0].float().T
+    logits.masked_fill_(torch.arange(s, device=q.device)[None, :]
+                        > torch.arange(i0, s, device=q.device)[:, None],
+                        float("-inf"))
+    p = torch.exp(scale * qi @ kj.T
+                  - torch.logsumexp(logits, dim=-1)[:, None])
+    d_row = (doi * o[0, 0, i0:].float()).sum(-1)
+    ds = p * (doi @ vj.T - d_row[:, None]) * scale
+    dq2, dk2 = dq.clone(), dk.clone()
+    dq2[0, 0, i0:] = (dq[0, 0, i0:].float() - ds @ kj).to(dq.dtype)
+    dk2[0, 0, j0:j0 + 64] = (dk[0, 0, j0:j0 + 64].float()
+                             - ds.T @ qi).to(dk.dtype)
+    return dq2, dk2
+
+
 def _flash_bwd_bytes_ops(shape, causal: bool, window: int, size: int):
     """Bytes (q, k, v, o, do read; dq, dk, dv written) and the fewest
     operations of the gradient: 10 * dh a kept query/key pair (s again,
@@ -3369,43 +3445,90 @@ def _flash_bwd_bytes_ops(shape, causal: bool, window: int, size: int):
 
 
 def phase_flash_bwd_kernel(torch, device):
-    """flash_attention_bwd kernel vs its plain twin (on the forward
+    """flash_attention_bwd kernels vs their plain twins (on the forward
     kernel's output) at the training shape (B=1, H=32, Hkv=8, S=4096,
-    dh=128, bf16, causal) and :data:`FLASH_BWD_CASES` (every head dim of
-    ``HEAD_DIMS``, fp32, windowed, non-causal, GQA groups 1 to 4), under
-    :data:`LM_TOL`, the same from run to run.  Times at the training
-    shape: the kernel, the plain twin, and SDPA forward + backward through
-    autograd (the library's yardstick: the port never calls it)."""
+    dh=128, bf16, causal: the tensor-core kernel, and the SIMT one
+    forced), :data:`FLASH_BWD_TC_CASES` and :data:`FLASH_BWD_CASES`,
+    under :data:`LM_TOL`, the same from run to run, each launch counted
+    on the variant ``bwd_kernel_variant`` names.  The tensor-core kernel
+    is held against the bf16-operand twin (its rounding) and the fp32
+    twin, and to :data:`TC_BWD_TILE_NORMWISE` against the bf16-operand
+    twin; a planted fault (one tile pair's share taken out of the
+    kernel's dq and dk at the training shape) must read above that bar.
+    The SIMT kernel is held against the fp32 twin.  Times at the training
+    shape: both kernels, both twins, and SDPA forward + backward through
+    autograd and backward alone (the library's yardstick: the port never
+    calls it), by CUDA events."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device)
     gen.manual_seed(12)
-    worst, inputs = {}, None
-    for shape, dtype, causal, window in \
-            ((FLASH_MAIN, "bfloat16", True, 0),) + FLASH_BWD_CASES:
+    worst, worst_fp32, variants, inputs = {}, {}, {}, None
+    tile16, tile32 = {}, {}
+    twins = main_twins = main_got = None
+    for shape, dtype, causal, window, force in \
+            ((FLASH_MAIN, "bfloat16", True, 0, None),) + FLASH_BWD_TC_CASES \
+            + FLASH_BWD_CASES:
         b, h, hkv, s, dh = shape
         td = getattr(torch, dtype)
-        q, k, v, do = (torch.randn(sh, generator=gen, device=device).to(td)
-                       for sh in ((b, h, s, dh), (b, hkv, s, dh),
-                                  (b, hkv, s, dh), (b, h, s, dh)))
-        o = fa.flash_attention(q, k, v, causal=causal, window=window)
-        got = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
-        again = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
-        want = fa.flash_attention_bwd(q, k, v, o, do, causal, window,
-                                      impl="plain")
+        if shape == FLASH_MAIN and inputs is not None:
+            (q, k, v, o, do), twins = inputs, main_twins
+        else:
+            q, k, v, do = (torch.randn(sh, generator=gen,
+                                       device=device).to(td)
+                           for sh in ((b, h, s, dh), (b, hkv, s, dh),
+                                      (b, hkv, s, dh), (b, h, s, dh)))
+            o = fa.flash_attention(q, k, v, causal=causal, window=window)
+            twins = {}
+        variant = fa.bwd_kernel_variant(td, dh, force)
+        before = dict(fa.LAUNCHES)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                          force)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                            force)
+        ran = {key: fa.LAUNCHES[key] - before[key]
+               for key in ("flash_attention_bwd", "flash_attention_bwd_tc")}
         name = (f"{b}x{h}/{hkv}x{s}x{dh} {dtype} causal={causal} "
-                f"w={window}")
-        errs = []
-        for grad, a, w, r in zip("qkv", got, want, again):
-            errs.append(_max_abs(torch, a, w))
-            require(_within(torch, a, w, dtype) and bool(torch.equal(a, r)),
-                    f"flash_bwd {name} d{grad}: kernel vs plain max abs err "
-                    f"{errs[-1]:.3g}, or not the same from run to run")
-        worst[name] = max(errs)
+                f"w={window} {variant}")
+        require(ran == {"flash_attention_bwd": 2, "flash_attention_bwd_tc":
+                        2 if variant == "tc" else 0},
+                f"flash_bwd {name}: launches {ran}")
+        for operands in ("bf16", "fp32") if variant == "tc" else ("fp32",):
+            if operands not in twins:
+                twins[operands] = fa.flash_attention_bwd_plain(
+                    q, k, v, o, do, causal, window, operands=operands)
+        errs, errs32 = [], []
+        for i, (grad, a, r) in enumerate(zip("qkv", got, again)):
+            want = twins["bf16" if variant == "tc" else "fp32"][i]
+            errs.append(_max_abs(torch, a, want))
+            errs32.append(_max_abs(torch, a, twins["fp32"][i]))
+            require(_within(torch, a, want, dtype)
+                    and _within(torch, a, twins["fp32"][i], dtype)
+                    and bool(torch.equal(a, r)),
+                    f"flash_bwd {name} d{grad}: kernel vs its twin max abs "
+                    f"err {errs[-1]:.3g}, vs the fp32 twin {errs32[-1]:.3g}, "
+                    f"or not the same from run to run")
+            if variant == "tc":
+                tile16.setdefault(name, {})[grad] = _tile_normwise(
+                    torch, a, want)
+                tile32.setdefault(name, {})[grad] = _tile_normwise(
+                    torch, twins["fp32"][i], want)
+                require(tile16[name][grad] <= TC_BWD_TILE_NORMWISE,
+                        f"flash_bwd {name} d{grad}: a 64-row tile "
+                        f"{tile16[name][grad]:.3g} normwise from the "
+                        f"bf16-operand twin (bar {TC_BWD_TILE_NORMWISE})")
+        worst[name], worst_fp32[name] = max(errs), max(errs32)
+        variants[name] = variant
         if inputs is None:
-            inputs = (q, k, v, o, do)
+            inputs, main_twins, main_got = (q, k, v, o, do), twins, got
+    planted = dict(zip("qk", _planted_tile_fault(torch, fa, *inputs,
+                                                 *main_got[:2])))
+    planted = {g: {"tile": _tile_normwise(torch, a, main_twins["bf16"][i]),
+                   "tensor": _rel_err(torch, a, main_twins["bf16"][i])}
+               for i, (g, a) in enumerate(planted.items())}
+    del twins, main_twins, main_got
     torch.cuda.synchronize()
     q, k, v, o, do = inputs
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -3416,23 +3539,52 @@ def phase_flash_bwd_kernel(torch, device):
 
     y = sdpa(qr, kr, vr)
     calls = {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, do),
+             "simt_ms": lambda: fa.flash_attention_bwd_cuda(
+                 q, k, v, o, do, variant="simt"),
              "plain_ms": lambda: fa.flash_attention_bwd(q, k, v, o, do,
                                                         impl="plain"),
+             "plain_bf16_ms": lambda: fa.flash_attention_bwd_plain(
+                 q, k, v, o, do, operands="bf16"),
              "library_ms": lambda: sdpa(qr, kr, vr).backward(do),
              "library_bwd_ms": lambda: torch.autograd.grad(
                  y, (qr, kr, vr), do, retain_graph=True)}
-    times = _event_times(torch, calls, reps=5)
-    times["device_ms"] = device_ms(torch, calls["ms"], 3)
+    times = _event_times(torch, calls, reps=10)
+    times["variant"] = fa.bwd_kernel_variant(q.dtype, q.shape[-1])
     times.update(bound(*_flash_bwd_bytes_ops(FLASH_MAIN, True, 0, 2),
                        BF16_TENSOR_OPS_PER_S))
     times["tflops"] = times["ops"] / (times["ms"] * 1e9)
+    times["simt_tflops"] = times["ops"] / (times["simt_ms"] * 1e9)
     times["bound_share"] = times["bound_ms"] / times["ms"]
+    times["simt_bound_share"] = times["bound_ms"] / times["simt_ms"]
+    times["ops_done"] = 16 * times["ops"] / 10   # 16 dh a kept pair
+    times["speedup_vs_simt"] = times["simt_ms"] / times["ms"]
     emit("flash_bwd_kernel", tol=LM_TOL, max_abs_err=worst,
-         shape=list(FLASH_MAIN), timing=EVENT_TIMING,
+         max_abs_err_vs_fp32_twin=worst_fp32, variants=variants,
+         tile_normwise_bar=TC_BWD_TILE_NORMWISE, tile_normwise=tile16,
+         tile_normwise_fp32_twin=tile32, planted_fault=planted,
+         shape=list(FLASH_MAIN), timing="CUDA events over back-to-back "
+         "calls after a warm-up (no profiler sum: in the LM worker it "
+         "recorded a fifth of this kernel's launches or fewer)",
+         twins="the tensor-core kernel is held against "
+               "flash_attention_bwd_plain(operands='bf16') (max_abs_err, "
+               "tile_normwise) and the fp32 twin "
+               "(max_abs_err_vs_fp32_twin); tile_normwise_fp32_twin is the "
+               "fp32 twin's reading against the bf16-operand one, "
+               "planted_fault that of the kernel's dq and dk with one tile "
+               "pair's share taken out (tile: the largest 64-row tile; "
+               "tensor: the whole tensor); the SIMT kernel against the "
+               "fp32 twin",
          library_note="library_ms is SDPA forward + backward through "
                       "autograd, library_bwd_ms its backward alone (a "
-                      "retained graph)", times=times)
-    return max(worst.values()), times
+                      "retained graph); ops is FA2's 10 dh a kept pair, "
+                      "ops_done the 16 dh the three passes run",
+         times=times)
+    require(min(r["tile"] for r in planted.values()) > TC_BWD_TILE_NORMWISE,
+            f"flash_bwd: the planted fault reads {planted}, within the "
+            f"tile bar {TC_BWD_TILE_NORMWISE}")
+    tc = {n: e for n, e in worst.items() if variants[n] == "tc"}
+    simt = {n: e for n, e in worst.items() if variants[n] == "simt"}
+    return max(tc.values()), max(simt.values()), times
 
 
 def _grads(model) -> dict:
@@ -3452,9 +3604,11 @@ def phase_train_full_width(torch, device, counters, smi):
     :func:`expected_train_launches` per step; the checkpoint the last step
     saved restored by a fresh trainer (resumes at step 4, parameters and
     moments bit-equal); one more step under the profiler.  The train CLI
-    runs in its own process on the card meanwhile (a failure injected at
-    step 6 of 10 on 4 hosts of the smoke config: it must recover on 3
-    hosts and reach step 9)."""
+    runs twice in processes of its own on the card meanwhile: a failure
+    injected at step 6 of 10 on 4 hosts of the smoke config at S=64 (it
+    must recover on 3 hosts and reach step 9), and 2 steps at
+    :data:`TRAIN_CLI_SEQ`, whose flash backward must run the SIMT kernel.
+    Returns the trainer's launch counts and the second CLI run's."""
     import gc
     import os
     import tempfile
@@ -3475,10 +3629,15 @@ def phase_train_full_width(torch, device, counters, smi):
                "10", "--hosts", "4", "--batch", "4", "--seq", "64",
                "--fail-at", "6", "--ckpt-dir", str(Path(tmp.name) / "cli"),
                "--device", str(device)]
+    simt_cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                "--steps", "2", "--hosts", "2", "--batch", "2", "--seq",
+                str(TRAIN_CLI_SEQ), "--ckpt-dir",
+                str(Path(tmp.name) / "cli_simt"), "--device", str(device)]
     t_cli = time.perf_counter()
-    cli = subprocess.Popen(cli_cmd, cwd=ROOT, env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                           text=True)
+    cli, cli_simt = (subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in (cli_cmd, simt_cmd))
     try:
         def trainer():
             return build_trainer(
@@ -3530,6 +3689,17 @@ def phase_train_full_width(torch, device, counters, smi):
         require(cli.returncode == 0
                 and "hosts left 3; last step 9" in out,
                 f"train CLI: exit {cli.returncode}, no recovery line\n{out}")
+        simt_out, _ = cli_simt.communicate(timeout=600)
+        tag = "[train] kernel launches "
+        cli_launches = json.loads(next(
+            (ln for ln in simt_out.splitlines() if ln.startswith(tag)),
+            tag + "{}")[len(tag):])
+        require(cli_simt.returncode == 0
+                and cli_launches.get("flash_attention_bwd", 0) > 0
+                and cli_launches["flash_attention_bwd_tc"] == 0,
+                f"train CLI at S={TRAIN_CLI_SEQ} (fp32 smoke config, dh "
+                f"16): exit {cli_simt.returncode}, its flash backward must "
+                f"run the SIMT kernel\n{simt_out}")
 
         # the main path: TRAIN_STEPS trainer steps, each step's launches
         # read around the trainer's own step function
@@ -3592,9 +3762,10 @@ def phase_train_full_width(torch, device, counters, smi):
             tr.model, tr.opt_state, batch, TRAIN_STEPS), top=16,
             groups=TRAIN_GROUPS)
     finally:
-        if cli.poll() is None:
-            cli.kill()
-            cli.wait()
+        for proc in (cli, cli_simt):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.cleanup()
     summary = tr.speedup_summary()
     emit("train_full_width", nvidia_smi=smi, arch=LLAMA,
@@ -3612,12 +3783,15 @@ def phase_train_full_width(torch, device, counters, smi):
          peak_memory_gb=peak_gb, hosts=TRAIN_HOSTS,
          power_aware_speedup=summary["speedup"],
          checkpoint_gb=ckpt_gb, restore_s=restore_s,
-         cli_wall_s=cli_wall, cli_last_line=out.strip().splitlines()[-1],
+         cli_wall_s=cli_wall, cli_simt_seq=TRAIN_CLI_SEQ,
+         cli_simt_launches=cli_launches,
+         cli_recovery_line=next(ln for ln in out.splitlines()
+                                if "hosts left" in ln),
          profile_step=prof, phase_wall_s=time.perf_counter() - t_phase)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, cli_launches
 
 
 def phase_ssm_grad_guard(torch, device):
@@ -3639,11 +3813,11 @@ def phase_ssm_grad_guard(torch, device):
 
 
 def train_phases(torch, device, counters, smi):
-    """The training slice: both backward kernels against their plain
+    """The training slice: the backward kernels against their plain
     twins, the full-width training path, the ssm_scan guard."""
     rn_err, rn_times = phase_rmsnorm_bwd_kernel(torch, device)
-    fa_err, fa_times = phase_flash_bwd_kernel(torch, device)
-    launches = phase_train_full_width(torch, device, counters, smi)
+    tc_err, simt_err, fa_times = phase_flash_bwd_kernel(torch, device)
+    launches, cli = phase_train_full_width(torch, device, counters, smi)
     phase_ssm_grad_guard(torch, device)
     why = ("the reference trains through plain jnp and XLA's autodiff "
            "(no custom_vjp); the port's forward is a ctypes kernel autograd "
@@ -3659,16 +3833,35 @@ def train_phases(torch, device, counters, smi):
          **{k: rn_times[k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms",
                                      "library_bwd_ms")}},
+        {"name": "flash_attention_bwd_tc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+         "replaces": None, "why": why,
+         "backward_of": "src/repro/models/attention.py:96",
+         "launches": launches["flash_attention_bwd_tc"],
+         "launches_train": launches["flash_attention_bwd_tc"],
+         "max_abs_err": tc_err, "shape": list(FLASH_MAIN),
+         **{k: fa_times[k] for k in ("ms", "plain_bf16_ms", "bound_ms",
+                                     "bound_by", "bound_share", "library_ms",
+                                     "library_bwd_ms", "tflops")},
+         "plain_ms": fa_times["plain_bf16_ms"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": None, "why": why,
          "backward_of": "src/repro/models/attention.py:96",
-         "launches": launches["flash_attention_bwd"],
-         "launches_train": launches["flash_attention_bwd"],
-         "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
-         **{k: fa_times[k] for k in ("ms", "device_ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms",
-                                     "library_bwd_ms", "tflops")}},
+         "launches": cli["flash_attention_bwd"] - cli[
+             "flash_attention_bwd_tc"],
+         "launches_note": "launches are the second train CLI run's (its "
+                          "own process: the fp32 smoke config at dh 16, "
+                          f"S {TRAIN_CLI_SEQ}, 2 steps); launches_train "
+                          "the full-width trainer's, all on the "
+                          "tensor-core kernel",
+         "launches_train": launches["flash_attention_bwd"] - launches[
+             "flash_attention_bwd_tc"],
+         "max_abs_err": simt_err, "shape": list(FLASH_MAIN),
+         "ms": fa_times["simt_ms"], "tflops": fa_times["simt_tflops"],
+         "bound_share": fa_times["simt_bound_share"],
+         **{k: fa_times[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_bwd_ms")}},
     ]
 
 

@@ -5,7 +5,8 @@ into one shared library with a plain C interface, on first use, into
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``).  Each source compiles to an object in its own ``nvcc``
 process, all started together, and one more ``nvcc`` links them.  The
-library's file name carries a hash of the sources and the flags, so an
+library's file name carries a hash of the sources, the headers they
+include and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as built.  Nothing here runs at import time: this module is
 imported on machines with no CUDA toolkit, where only the plain PyTorch
 versions run.
@@ -27,7 +28,10 @@ from typing import Dict, NamedTuple, Optional
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu",
             "flash_attention_tc.cu", "ssm_scan.cu", "rmsnorm_bwd.cu",
-            "flash_attention_bwd.cu")
+            "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu")
+#: Headers the sources include: part of the library's hash, not compiled
+#: on their own.
+_HEADERS = ("hopper_tc.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: ``--fmad=false`` keeps every multiply and add rounding on its own (no
@@ -66,7 +70,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -94,6 +98,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention_bwd.argtypes = [_P] * 9 + [_I] * 6 + [_F] + \
         [_I] * 3 + [_P]
     lib.repro_flash_attention_bwd.restype = _I
+    lib.repro_flash_attention_bwd_tc.argtypes = [_P] * 9 + [_I] * 6 + \
+        [_F] + [_I] * 2 + [_P]
+    lib.repro_flash_attention_bwd_tc.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

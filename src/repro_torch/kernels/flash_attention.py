@@ -48,12 +48,24 @@ variant falls back to another.
 Training: under grad mode, with q, k or v requiring a gradient,
 :func:`flash_attention` runs through :class:`FlashAttentionFunction`,
 which saves q, k, v and the output and whose backward is
-:func:`flash_attention_bwd`: the hand-written SIMT kernel
-``csrc/flash_attention_bwd.cu`` for CUDA tensors (any pair of
-:data:`HEAD_DIMS` and fp32 or bf16, under
-``LAUNCHES["flash_attention_bwd"]``), :func:`flash_attention_bwd_plain`
-for CPU ones.  The forward kernels are unchanged: the backward
-recomputes the softmax statistics from q and k.
+:func:`flash_attention_bwd`: a hand-written kernel for CUDA tensors,
+:func:`flash_attention_bwd_plain` for CPU ones.  Two kernels compute the
+backward, picked by :data:`BWD_KERNEL_VARIANTS`:
+
+* ``"tc"`` (``csrc/flash_attention_bwd_tc.cu``) for bf16 at dh 64 and
+  128 (:data:`TC_BWD_HEAD_DIMS`): wgmma and TMA, three passes.  It rounds p and ds to bf16 before the
+  products that take them (``flash_attention_bwd_plain(...,
+  operands="bf16")`` spells this); :func:`tc_bwd_q_tiles`,
+  :func:`tc_bwd_tile_masked` and :func:`tc_kv_tiles` mirror its tile
+  rules.
+* ``"simt"`` (``csrc/flash_attention_bwd.cu``) for fp32 and every other
+  head dim of :data:`HEAD_DIMS`, in fp32 throughout
+  (``operands="fp32"``, the default).
+
+Every backward launch counts under ``LAUNCHES["flash_attention_bwd"]``,
+the tensor-core one's also under ``LAUNCHES["flash_attention_bwd_tc"]``.
+The forward kernels are unchanged: the backward recomputes the softmax
+statistics from q and k.
 """
 
 from __future__ import annotations
@@ -84,16 +96,27 @@ KERNEL_VARIANTS = {
     **{(torch.bfloat16, dh): "tc" if dh in (64, 128) else "simt"
        for dh in HEAD_DIMS},
 }
+#: The tensor-core backward's head dims (bf16 only).
+TC_BWD_HEAD_DIMS = (64, 128)
+#: The backward kernel each (dtype, dh) launches by default: the
+#: tensor-core kernel for bf16 at its head dims, the SIMT kernel for the
+#: rest (fp32 stays in fp32).
+BWD_KERNEL_VARIANTS = {
+    **{(torch.float32, dh): "simt" for dh in HEAD_DIMS},
+    **{(torch.bfloat16, dh): "tc" if dh in TC_BWD_HEAD_DIMS else "simt"
+       for dh in HEAD_DIMS},
+}
 #: Score of a masked query/key pair (both JAX forms use it).
 MASKED = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches, counted where each launch happens: every launch under
-#: ``flash_attention``, the tensor-core kernel's also under
-#: ``flash_attention_tc``.
+#: Kernel launches, counted where each launch happens: every forward
+#: launch under ``flash_attention``, the tensor-core kernel's also under
+#: ``flash_attention_tc``; every backward under ``flash_attention_bwd``,
+#: the tensor-core one's also under ``flash_attention_bwd_tc``.
 LAUNCHES: Counter = Counter(flash_attention=0, flash_attention_tc=0,
-                            flash_attention_bwd=0)
+                            flash_attention_bwd=0, flash_attention_bwd_tc=0)
 
 
 def kernel_variant(dtype: torch.dtype, dh: int,
@@ -116,20 +139,68 @@ def kernel_variant(dtype: torch.dtype, dh: int,
     return variant
 
 
-def tc_kv_tiles(q0: int, rows: int, sk: int, causal: bool,
-                window: int) -> range:
-    """The kv tiles (of :data:`TC_BLOCK_KV` keys) the tensor-core kernel
-    loads for query rows ``q0 .. q0+rows-1``: with ``causal`` none past
-    the one holding key ``q0+rows-1``, with a window none before the one
-    holding key ``q0-window+1``.  Mirrors ``kv_tiles`` in
-    ``csrc/flash_attention_tc.cu``."""
-    hi = -(-sk // TC_BLOCK_KV)
+def tc_kv_tiles(q0: int, rows: int, sk: int, causal: bool, window: int,
+                block: int = TC_BLOCK_KV) -> range:
+    """The kv tiles (of ``block`` keys) a tensor-core kernel loads for
+    query rows ``q0 .. q0+rows-1``: with ``causal`` none past the one
+    holding key ``q0+rows-1``, with a window none before the one holding
+    key ``q0-window+1``.  Mirrors ``kv_tiles`` in ``csrc/hopper_tc.cuh``:
+    the forward's tiles of :data:`TC_BLOCK_KV` keys, the backward's dq
+    pass's of 64."""
+    hi = -(-sk // block)
     if causal:
-        hi = min(hi, (q0 + rows - 1) // TC_BLOCK_KV + 1)
+        hi = min(hi, (q0 + rows - 1) // block + 1)
     lo = 0
     if window > 0 and q0 - window + 1 > 0:
-        lo = (q0 - window + 1) // TC_BLOCK_KV
+        lo = (q0 - window + 1) // block
     return range(lo, max(lo, hi))
+
+
+def tc_bwd_q_tiles(k0: int, keys: int, sq: int, causal: bool,
+                   window: int) -> range:
+    """The 64-row query tiles the tensor-core backward's dk/dv pass
+    loads for keys ``k0 .. k0+keys-1``: with ``causal`` none before the
+    one holding query ``k0`` (earlier rows keep none of the keys), with a
+    window none past the one holding query ``k0+keys-1+window-1`` (the
+    last row any of the keys is kept by).  Mirrors ``q_tiles`` in
+    ``csrc/flash_attention_bwd_tc.cu``."""
+    lo = k0 // BLOCK_Q if causal else 0
+    hi = sq // BLOCK_Q
+    if window > 0:
+        hi = min(hi, (k0 + keys - 1 + window - 1) // BLOCK_Q + 1)
+    return range(lo, max(lo, hi))
+
+
+def tc_bwd_tile_masked(q0: int, k0: int, causal: bool, window: int) -> bool:
+    """Whether the backward masks the 64 x 64 tile of query rows ``q0 ..``
+    and keys ``k0 ..`` elementwise: it holds a pair the mask drops.
+    Mirrors ``pair_tile_masked`` in ``csrc/flash_attention_bwd_tc.cu``; an
+    unmasked tile is taken whole."""
+    return ((causal and q0 < k0 + 63)
+            or (window > 0 and q0 + 63 - k0 >= window))
+
+
+def bwd_kernel_variant(dtype: torch.dtype, dh: int,
+                       variant: Optional[str] = None) -> str:
+    """The backward kernel that runs ``(dtype, dh)`` on the card: the
+    table's (:data:`BWD_KERNEL_VARIANTS`) for ``variant=None``, else
+    ``variant`` itself if that kernel takes the pair.  Raises for a pair
+    the kernel does not take."""
+    if (dtype, dh) not in BWD_KERNEL_VARIANTS:
+        raise ValueError(f"the flash backward kernels take float32 or "
+                         f"bfloat16 with dh in {HEAD_DIMS}, got {dtype} "
+                         f"dh={dh}")
+    if variant is None:
+        return BWD_KERNEL_VARIANTS[(dtype, dh)]
+    if variant not in ("tc", "simt"):
+        raise ValueError(f"unknown flash backward kernel variant "
+                         f"{variant!r}")
+    if variant == "tc" and (dtype != torch.bfloat16
+                            or dh not in TC_BWD_HEAD_DIMS):
+        raise ValueError(f"the tensor-core flash backward kernel takes "
+                         f"bfloat16 with dh in {TC_BWD_HEAD_DIMS}, got "
+                         f"{dtype} dh={dh}")
+    return variant
 
 
 def tc_tile_masked(q_lo: int, k0: int, sk: int, causal: bool,
@@ -250,8 +321,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
-                              window: int = 0, block_kv: int = BLOCK_KV):
-    """The backward kernel's algorithm as a torch loop over kv tiles of
+                              window: int = 0, block_kv: int = BLOCK_KV,
+                              operands: str = "fp32"):
+    """The backward kernels' algorithm as a torch loop over kv tiles of
     ``min(block_kv, Sk)`` keys (all query rows at once): ``(dq, dk, dv)``
     in the inputs' types.
 
@@ -261,7 +333,16 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
     max(l, 1e-30)``, ``dv = p^T do``, ``dp = do v^T``, ``ds = p * (dp -
     D) * scale``, ``dk = ds^T q`` and ``dq += ds k``, in fp32.  The
     forward's rounding of p to v's type counts as the identity (as
-    autodiff of the reference takes it)."""
+    autodiff of the reference takes it).
+
+    ``operands="fp32"`` (the SIMT kernel's arithmetic) keeps p and ds in
+    fp32; ``"bf16"`` (the tensor-core kernel's) rounds p to bf16 before
+    ``dv``'s product and ds (formed from the unrounded p) before ``dk``'s
+    and ``dq``'s, the sums still in fp32."""
+    if operands not in ("fp32", "bf16"):
+        raise ValueError(f"operands must be 'fp32' or 'bf16', got "
+                         f"{operands!r}")
+    bf16 = operands == "bf16"
     b, h, hkv, sq, sk, dh = _check_shapes(q, k, v)
     bk = min(block_kv, sk)
     if sk % bk:
@@ -294,6 +375,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
         p = torch.exp(s - m) * linv
         dp = dof @ vb.transpose(-1, -2)
         ds = p * (dp - dd) * scale
+        if bf16:
+            p, ds = p.bfloat16().float(), ds.bfloat16().float()
         dv[:, :, k0:k0 + bk] = p.transpose(-1, -2) @ dof
         dk[:, :, k0:k0 + bk] = ds.transpose(-1, -2) @ qf
         dq += ds @ kb
@@ -302,11 +385,13 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, causal: bool = True,
-                             window: int = 0):
-    """Launch the backward kernel (``csrc/flash_attention_bwd.cu``):
-    contiguous q, k, v, the forward's output o and its gradient do, of
-    one type (fp32 or bf16) on one CUDA device, Sq and Sk multiples of 64,
-    dh in :data:`HEAD_DIMS`.  Returns ``(dq, dk, dv)``."""
+                             window: int = 0,
+                             variant: Optional[str] = None):
+    """Launch the backward kernel :func:`bwd_kernel_variant` picks
+    (``variant`` forces one): contiguous q, k, v, the forward's output o
+    and its gradient do, of one type (fp32 or bf16) on one CUDA device,
+    Sq and Sk multiples of 64, dh in :data:`HEAD_DIMS`.  Returns ``(dq,
+    dk, dv)``."""
     from repro_torch.kernels._build import check, load_library
 
     b, h, hkv, sq, sk, dh = _check_shapes(q, k, v)
@@ -326,30 +411,38 @@ def flash_attention_bwd_cuda(q, k, v, o, do, causal: bool = True,
     if sq % BLOCK_Q or sk % BLOCK_KV or sq == 0 or sk == 0:
         raise ValueError(f"Sq={sq} and Sk={sk} must be positive multiples "
                          f"of the kernel's tiles ({BLOCK_Q}, {BLOCK_KV})")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the flash backward kernel takes dh in "
-                         f"{HEAD_DIMS}, got {dh}")
+    variant = bwd_kernel_variant(q.dtype, dh, variant)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if variant == "tc" and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("the tensor-core flash backward reads q, k, v, o "
+                         "and do through TMA and 16-byte loads: 16-byte "
+                         "aligned storage")
     lib = load_library().lib
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ws = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            ws.data_ptr(), b, h, hkv, sq, sk, dh, softmax_scale(dh),
-            int(bool(causal)), int(window), _DTYPES[q.dtype], stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                ws.data_ptr(), b, h, hkv, sq, sk, dh, softmax_scale(dh),
+                int(bool(causal)), int(window))
+        if variant == "tc":
+            code = lib.repro_flash_attention_bwd_tc(*args, stream)
+        else:
+            code = lib.repro_flash_attention_bwd(*args, _DTYPES[q.dtype],
+                                                 stream)
     check(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    if variant == "tc":
+        LAUNCHES["flash_attention_bwd_tc"] += 1
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, do, causal: bool = True, window: int = 0,
                         impl: Optional[str] = None):
-    """Dispatch the backward: the kernel for CUDA tensors, the plain loop
-    for CPU ones."""
+    """Dispatch the backward: the kernel :data:`BWD_KERNEL_VARIANTS`
+    routes to for CUDA tensors, the plain loop for CPU ones."""
     if resolve_impl(impl, q) == "plain":
         return flash_attention_bwd_plain(q, k, v, o, do, causal, window)
     return flash_attention_bwd_cuda(q, k, v, o, do.contiguous(), causal,

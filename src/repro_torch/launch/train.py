@@ -8,13 +8,15 @@
 ``--full`` the published one, with ``--n-layers`` / ``--d-model`` to cut
 it.  It runs on the card unless ``--device cpu`` is given, and fails
 without one.  Prints per-step loss and the modelled power-aware vs
-equal-share makespans (the paper's metric, closed-loop).  The flags are
-the reference's (``python -m repro.launch.train``) plus ``--device``.
+equal-share makespans (the paper's metric, closed-loop), and last each
+kernel's launch count.  The flags are the reference's (``python -m
+repro.launch.train``) plus ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from dataclasses import replace
 
@@ -102,7 +104,19 @@ def main(argv=None) -> int:
           f"{history[-1].step}")
     print(f"[train] loss {s['first_loss']:.4f} -> {s['final_loss']:.4f}; "
           f"power-aware speedup over equal-share: {s['speedup']:.3f}x")
+    print(f"[train] kernel launches {json.dumps(kernel_launches())}")
     return 0
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count in this process (0 on the CPU, where
+    only the plain versions run)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+
+    return dict(sorted({**rn.LAUNCHES, **fa.LAUNCHES,
+                        **ss.LAUNCHES}.items()))
 
 
 if __name__ == "__main__":

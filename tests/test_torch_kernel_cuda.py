@@ -2,8 +2,9 @@
 the card: ``power_step`` (with ``waterfill``, and the whole-row wave loop
 ``wave_run`` against the engine's plain and per-wave paths), ``rmsnorm``,
 ``flash_attention`` and ``ssm_scan``, the backward kernels
-(``rmsnorm_bwd``, ``flash_attention_bwd``) and one training loss and
-backward of a smoke model on the card.  Every test here needs an NVIDIA
+(``rmsnorm_bwd``, ``flash_attention_bwd`` in both variants) and one
+training loss and backward of a smoke model on the card.  Every test
+here needs an NVIDIA
 GPU with ``nvcc`` and skips elsewhere; the file imports neither ``jax``
 nor ``repro``, so it runs on the GPU machine as it is:
 
@@ -325,6 +326,20 @@ def test_wave_run_rejects_what_it_cannot_take(cuda_device):
 #: attention's products run in another order than cuBLAS's, so fp32
 #: agrees to rounding and bf16 to a flipped rounding of p or of the output
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: The tensor-core flash backward against its bf16-operand twin, besides
+#: TOL: the largest 64-row tile's normwise distance, as chip_smoke.py
+#: holds it (PERF.md gives the readings it was set from).
+TC_BWD_TILE_NORMWISE = 2e-3
+
+
+def _tile_normwise(got, want, rows=64):
+    """Largest ||got - want|| / ||want|| over the tiles of ``rows`` rows
+    of each batch and head of ``(B, H, S, dh)`` tensors, in float64."""
+    b, h, s, d = want.shape
+    g = got.double().reshape(b * h, s // rows, rows * d)
+    w = want.double().reshape(b * h, s // rows, rows * d)
+    return float(((g - w).norm(dim=-1)
+                  / w.norm(dim=-1).clamp_min(1e-300)).max())
 
 
 @pytest.mark.parametrize("layer_form", [False, True])
@@ -498,6 +513,19 @@ def test_tc_flash_raises_on_what_tma_cannot_read(cuda_device):
     before = dict(fa.LAUNCHES)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention(odd, q, q)
+    assert fa.LAUNCHES == before
+
+
+def test_tc_flash_bwd_raises_on_what_tma_cannot_read(cuda_device):
+    """The same for the backward: a bf16 dh-128 gradient launches the
+    tensor-core backward or raises on storage TMA cannot read."""
+    q = torch.randn(1, 2, 128, 128, device=cuda_device).bfloat16()
+    odd = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(q.shape)
+    odd.copy_(q)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd(q, q, q, q, odd)
     assert fa.LAUNCHES == before
 
 
@@ -806,20 +834,33 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
         assert torch.equal(got, rerun)
 
 
-@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype", [
-    (1, 4, 1, 128, 16, True, 0, torch.float32),
-    (1, 8, 2, 192, 32, False, 0, torch.bfloat16),
-    (2, 4, 4, 256, 64, True, 100, torch.bfloat16),
-    (1, 4, 2, 256, 80, False, 0, torch.float32),
-    (1, 4, 1, 320, 128, True, 0, torch.bfloat16),
-    (1, 2, 1, 128, 256, True, 70, torch.float32),
-    (1, 2, 2, 128, 256, False, 0, torch.bfloat16),
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype,variant", [
+    (1, 4, 1, 128, 16, True, 0, torch.float32, None),
+    (1, 8, 2, 192, 32, False, 0, torch.bfloat16, None),
+    (2, 4, 4, 256, 64, True, 100, torch.bfloat16, None),
+    (1, 4, 2, 256, 80, False, 0, torch.float32, None),
+    (1, 4, 1, 320, 128, True, 0, torch.bfloat16, None),
+    (1, 2, 1, 128, 256, True, 70, torch.float32, None),
+    (1, 2, 2, 128, 256, False, 0, torch.bfloat16, None),
+    # the tensor-core kernel: GQA groups 1, 4 and 8, every mask, a 64-row
+    # last tile (S = 64 mod 128), dh 64 and 128 by the table
+    (1, 2, 2, 192, 64, False, 0, torch.bfloat16, None),
+    (1, 8, 2, 512, 128, True, 0, torch.bfloat16, None),
+    (2, 8, 1, 320, 64, True, 96, torch.bfloat16, None),
+    (1, 4, 1, 448, 128, False, 130, torch.bfloat16, None),
+    (1, 4, 4, 1024, 128, True, 256, torch.bfloat16, None),
+    # the SIMT kernel forced at a shape the table sends to the tensor cores
+    (1, 4, 1, 320, 128, True, 0, torch.bfloat16, "simt"),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
-                                        causal, window, dtype):
-    """The backward kernel against its plain twin on the forward
-    kernel's output: every head dim, GQA, masks; the same from run to
-    run (no atomics)."""
+                                        causal, window, dtype, variant):
+    """The backward kernel (the table's, or the one a case forces) against
+    its plain twin on the forward kernel's output: the tensor-core kernel
+    against the bf16-operand twin, elementwise and to
+    :data:`TC_BWD_TILE_NORMWISE` over each 64-row tile of each head, the
+    SIMT one against the fp32 twin; every head dim, GQA, masks; the same
+    from run to run (no atomics); each launch counted, the tensor-core
+    kernel's also on its own."""
     gen = torch.Generator(device=cuda_device).manual_seed(s + dh)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
                for shape in ((b, h, s, dh), (b, hkv, s, dh),
@@ -827,24 +868,34 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
     do = torch.randn((b, h, s, dh), generator=gen,
                      device=cuda_device).to(dtype)
     o = fa.flash_attention(q, k, v, causal=causal, window=window)
-    before = fa.LAUNCHES["flash_attention_bwd"]
-    got = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
-    again = fa.flash_attention_bwd(q, k, v, o, do, causal, window)
+    ran = fa.bwd_kernel_variant(dtype, dh, variant)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                      variant)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                        variant)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention_bwd"] == before + 2
-    want = fa.flash_attention_bwd(q, k, v, o, do, causal, window,
-                                  impl="plain")
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    assert fa.LAUNCHES["flash_attention_bwd_tc"] == \
+        before["flash_attention_bwd_tc"] + (2 if ran == "tc" else 0)
+    want = fa.flash_attention_bwd_plain(
+        q, k, v, o, do, causal, window,
+        operands="bf16" if ran == "tc" else "fp32")
     for g, w, r in zip(got, want, again):
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
         assert torch.equal(g, r)
+        if ran == "tc":
+            assert _tile_normwise(g, w) <= TC_BWD_TILE_NORMWISE
 
 
 def test_train_grads_on_card_match_plain(cuda_device):
     """One loss and backward of the llama smoke model in bf16 at dh=64,
     S=2048, remat on: every kernel launched as the model module's
-    training formula says (forward, recompute, backward), and the loss
-    and every gradient within 2e-2 normwise of the plain path's."""
+    training formula says (forward, recompute, backward; every flash
+    backward on the tensor-core kernel), and the loss and every gradient
+    within 2e-2 normwise of the plain path's."""
     from repro_torch.models import loss_fn
 
     cfg = replace(get_smoke("llama3-8b"), dtype="bfloat16",
@@ -871,7 +922,8 @@ def test_train_grads_on_card_match_plain(cuda_device):
     assert runs[None][2] == {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
                              "flash_attention": 2 * L,
                              "flash_attention_tc": 2 * L,
-                             "flash_attention_bwd": L}
+                             "flash_attention_bwd": L,
+                             "flash_attention_bwd_tc": L}
     assert not any(runs["plain"][2].values())
     assert runs[None][0] == pytest.approx(runs["plain"][0], rel=2e-2)
     for name, g in runs[None][1].items():

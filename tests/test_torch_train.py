@@ -256,6 +256,7 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     assert "device=cpu" in out
     assert "hosts left 3; last step 9" in out
     assert "power-aware speedup over equal-share" in out
+    assert '[train] kernel launches {"flash_attention": 0' in out
 
 
 def test_training_modules_import_neither_jax_nor_reference():
