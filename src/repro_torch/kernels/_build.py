@@ -92,8 +92,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention_tc.restype = _I
     lib.repro_ssm_scan.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.repro_ssm_scan.restype = _I
-    lib.repro_rmsnorm_bwd.argtypes = [_P] * 6 + [_LL, _I, _F, _F, _I, _I,
-                                                 _P]
+    lib.repro_rmsnorm_bwd.argtypes = [ctypes.c_char_p, _P]  # packed args
     lib.repro_rmsnorm_bwd.restype = _I
     lib.repro_flash_attention_bwd.argtypes = [_P] * 9 + [_I] * 6 + [_F] + \
         [_I] * 3 + [_P]

@@ -34,7 +34,10 @@ Training: under grad mode, with ``x`` or ``gamma`` requiring a gradient,
 CUDA tensors (its own ``LAUNCHES["rmsnorm_bwd"]``), the plain
 :func:`rmsnorm_bwd_plain` for CPU ones.  Autograd cannot see through a
 ``ctypes`` launch, so without it the kernel's output would be a
-constant.  The forward launch path above is unchanged.
+constant.  :func:`rmsnorm_bwd_cuda` launches as the forward does (packed
+arguments, :data:`_BWD_ARGS`; the raw current stream; a device guard
+only when needed): at the training shape the kernel takes ~40 µs of
+device time, and a slower host would set the time of back-to-back calls.
 """
 
 from __future__ import annotations
@@ -64,9 +67,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: layer form (native alignment, as the C struct lays it out).
 _ARGS = struct.Struct("@PPPqiffii")
 
+#: The backward's C argument block, ``ReproRmsnormBwdArgs`` in
+#: ``csrc/rmsnorm_bwd.cu``: x, gamma, dy, dx, dgamma, the fp32 scratch,
+#: rows, d, 1/d, eps, dtype code, layer form.
+_BWD_ARGS = struct.Struct("@PPPPPPqiffii")
+
 #: Rows a block of the backward kernel walks (its share of dgamma is
-#: summed over them in row order, then the blocks' shares in block order).
+#: summed over them in row order, in registers on the vector path).
 BWD_ROWS = 16
+
+#: Chunks of 16 bytes a thread of the backward kernel holds on its vector
+#: path (x, dy, the next row's x and dy, gamma and dgamma's partial in
+#: registers): bf16 rows up to 8192 wide, fp32 up to 4096.  Wider rows run
+#: the strided kernel, in the same order.
+BWD_MAX_SLOTS = 4
+
+#: Groups of the backward's second pass: group ``k`` adds the blocks'
+#: partial rows ``k``, ``k + BWD_GROUPS``, ... in order, then the groups'
+#: sums are added in group order.
+BWD_GROUPS = 16
 
 #: Kernel launches, counted where each launch happens.
 LAUNCHES: Counter = Counter(rmsnorm=0, rmsnorm_bwd=0)
@@ -175,6 +194,46 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
     return out
 
 
+def bwd_vector_path(x: torch.Tensor, gamma: torch.Tensor,
+                    dy: torch.Tensor) -> bool:
+    """Whether the backward kernel takes these tensors on its vector path
+    (the C launcher's test: d a multiple of the 16-byte chunk, at most
+    :data:`BWD_MAX_SLOTS` chunks a thread, 16-byte aligned pointers; the
+    outputs and scratch the wrapper allocates are aligned); else the
+    strided kernel runs them, in the same order."""
+    vec = 16 // x.element_size()
+    d = x.shape[-1]
+    return (d % vec == 0 and -(-d // vec // THREADS) <= BWD_MAX_SLOTS
+            and all(t.data_ptr() % 16 == 0 for t in (x, gamma, dy)))
+
+
+def _dgamma_sum(part: torch.Tensor) -> torch.Tensor:
+    """``(rows, d)`` fp32 terms ``dy * y0`` -> ``(d,)`` in the backward
+    kernel's order: each block of :data:`BWD_ROWS` rows adds its rows in
+    order from zero; group ``k`` of :data:`BWD_GROUPS` adds the blocks'
+    sums ``k``, ``k + BWD_GROUPS``, ... in order from zero; the groups'
+    sums are added in group order from zero.  Zero padding adds nothing
+    (a sum started from +0 is never -0)."""
+    rows, d = part.shape
+    blocks = -(-rows // BWD_ROWS)
+    p = F.pad(part, (0, 0, 0, blocks * BWD_ROWS - rows))
+    p = p.view(blocks, BWD_ROWS, d)
+    acc = torch.zeros((blocks, d), dtype=part.dtype, device=part.device)
+    for i in range(BWD_ROWS):
+        acc = acc + p[:, i]
+    q = -(-blocks // BWD_GROUPS)
+    acc = F.pad(acc, (0, 0, 0, q * BWD_GROUPS - blocks))
+    acc = acc.view(q, BWD_GROUPS, d)
+    groups = torch.zeros((BWD_GROUPS, d), dtype=part.dtype,
+                         device=part.device)
+    for i in range(q):
+        groups = groups + acc[i]
+    total = torch.zeros(d, dtype=part.dtype, device=part.device)
+    for k in range(BWD_GROUPS):
+        total = total + groups[k]
+    return total
+
+
 def rmsnorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
                       dy: torch.Tensor, eps: float = 1e-5,
                       layer_form: bool = True):
@@ -184,44 +243,42 @@ def rmsnorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
     With ``r`` recomputed from ``x`` as the forward does, ``xh = x * r``
     and ``g = dy * gamma`` (fp32), ``dx = r * (g - xh * mean(g * xh))``
     (the rounding of the forward's output taken as the identity, as
-    autodiff of the reference does), in ``x``'s type; ``dgamma`` sums
-    ``dy * y0`` over the rows in fp32, ``y0`` the forward's ``x * r``
-    rounded to ``x``'s type in the layer's form (unrounded in the other),
-    in ``gamma``'s type.  Both row sums run in the kernel's order
-    (:func:`_row_sum`); dgamma's rows in blocks of :data:`BWD_ROWS`, each
-    block's rows in order, then the blocks in order."""
+    autodiff of the reference does), in ``x``'s type, with ``mean(g *
+    xh)`` taken as ``r * sum(g * x) * (1/d)``; ``dgamma`` sums ``dy * y0``
+    over the rows in fp32, ``y0`` the forward's ``x * r`` rounded to
+    ``x``'s type in the layer's form (unrounded in the other), in
+    ``gamma``'s type.  Both row sums run in the kernel's order
+    (:func:`_row_sum`: one reduction of the pair in the kernel), dgamma's
+    in :func:`_dgamma_sum`'s."""
     d = x.shape[-1]
     vec = 16 // x.element_size()
     xf = x.reshape(-1, d).float()
     dyf = dy.reshape(-1, d).float()
-    r = torch.sqrt(_sum_squares(xf, vec) * _inv(d) + eps).reciprocal()
-    xh = xf * r
     g = dyf * gamma.float()
-    mean = _row_sum(g * xh, vec) * _inv(d)
+    r = torch.sqrt(_row_sum(xf * xf, vec) * _inv(d) + eps).reciprocal()
+    mean = r * _row_sum(g * xf, vec) * _inv(d)
+    xh = xf * r
     dx = (r * (g - xh * mean)).to(x.dtype).view(x.shape)
     part = dyf * (xh.to(x.dtype).float() if layer_form else xh)
-    rows = part.shape[0]
-    blocks = -(-rows // BWD_ROWS)
-    part = F.pad(part, (0, 0, 0, blocks * BWD_ROWS - rows))
-    part = part.view(blocks, BWD_ROWS, d)
-    acc = part[:, 0]
-    for i in range(1, BWD_ROWS):
-        acc = acc + part[:, i]
-    dgamma = acc[0]
-    for b in range(1, blocks):
-        dgamma = dgamma + acc[b]
-    return dx, dgamma.to(gamma.dtype)
+    return dx, _dgamma_sum(part).to(gamma.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    """The backward's C entry point, resolved once per process."""
+    return _build.load_library().lib.repro_rmsnorm_bwd
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                      eps: float = 1e-5, layer_form: bool = True):
     """Launch the backward kernel (``csrc/rmsnorm_bwd.cu``): ``x`` and
     ``dy`` contiguous of one shape, ``gamma (d,)``, one type (fp32 or
-    bf16) on one CUDA device.  Returns ``(dx, dgamma)``."""
-    from repro_torch.kernels._build import check, load_library
-
-    if not (x.is_cuda and gamma.device == x.device
-            and dy.device == x.device):
+    bf16) on one CUDA device.  Returns ``(dx, dgamma)``.  The launch path
+    is the forward's: packed arguments, the raw current stream, a device
+    guard only when ``x`` is not on the current device."""
+    index = x.get_device()
+    if not (x.is_cuda and gamma.get_device() == index
+            and dy.get_device() == index):
         raise ValueError(f"the CUDA kernel needs x, gamma and dy on one CUDA "
                          f"device, got {x.device}, {gamma.device} and "
                          f"{dy.device}")
@@ -243,19 +300,23 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     if not 1 <= rows < 2 ** 31:
         raise ValueError(f"the rmsnorm backward kernel takes 1 to 2^31 - 1 "
                          f"rows, got {rows}")
-    lib = load_library().lib
+    launch = _bwd_entry()
+    _, raw_stream, current_device = _entry()
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     part = torch.empty((-(-rows // BWD_ROWS), d), dtype=torch.float32,
                        device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_rmsnorm_bwd(x.data_ptr(), gamma.data_ptr(),
-                                    dy.data_ptr(), dx.data_ptr(),
-                                    dgamma.data_ptr(), part.data_ptr(), rows,
-                                    d, _inv(d), eps, code,
-                                    1 if layer_form else 0, stream)
-    check(err, "rmsnorm_bwd")
+    args = _BWD_ARGS.pack(x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                          dx.data_ptr(), dgamma.data_ptr(), part.data_ptr(),
+                          rows, d, _inv(d), eps, code,
+                          1 if layer_form else 0)
+    if index == current_device():
+        err = launch(args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = launch(args, raw_stream(index))
+    if err:
+        _build.check(err, "rmsnorm_bwd")
     LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dgamma
 

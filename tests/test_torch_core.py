@@ -316,6 +316,25 @@ def test_rmsnorm_probe_variant_edits_match_the_kernel(monkeypatch, variant):
     assert f"constexpr int kThreads = {threads};" in edited
 
 
+@pytest.mark.parametrize("variant", ("rows8", "rows32", "no_prefetch"))
+def test_rmsnorm_probe_bwd_variant_edits_match_the_kernel(monkeypatch,
+                                                          variant):
+    """Each of ``rmsnorm_probe.py``'s backward variants edits
+    ``csrc/rmsnorm_bwd.cu``'s text: every edit matches the source exactly
+    once and changes it, and the rows a block it declares are the ones its
+    edit sets."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import rmsnorm_probe
+
+    assert sorted(rmsnorm_probe.BWD_VARIANTS) == sorted(
+        ["tree", "rows8", "rows32", "no_prefetch"])
+    text = rmsnorm_probe.BWD_SOURCE.read_text()
+    rows, edits = rmsnorm_probe.BWD_VARIANTS[variant]
+    edited = rmsnorm_probe.variant_source(text, edits)
+    assert edited != text
+    assert f"constexpr int kRows = {rows};" in edited
+
+
 def test_rmsnorm_probe_fails_without_gpu():
     """No CUDA device: a nonzero exit and no measurement line."""
     proc = _run_smoke(ROOT, ROOT / "rmsnorm_probe.py")

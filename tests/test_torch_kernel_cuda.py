@@ -810,17 +810,29 @@ def test_soft_makespan_on_the_card_matches_the_cpu(cuda_device):
 # ------------------------------------------------------ backward kernels
 @pytest.mark.parametrize("layer_form", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 4096), (4096, 4096), (1001, 4096),
-                                   (3, 5, 1001), (17, 20000)])
-def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
+@pytest.mark.parametrize("shape,offset", [
+    ((8, 4096), 0), ((4096, 4096), 0), ((1001, 4096), 0), ((3, 5, 1001), 0),
+    ((17, 20000), 0),
+    # the configs' widths (fp32 at 8192 runs the strided kernel)
+    ((4096, 1280), 0), ((4096, 2560), 0), ((4096, 8192), 0),
+    # an x one element off its 16-byte alignment: the strided kernel
+    ((37, 4096), 1)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, offset, dtype,
                                           layer_form):
     """The backward kernel against its plain twin (the same sums in the
-    same order), one launch counted; dgamma the same from run to run."""
+    same order): bit for bit on the vector path, within TOL on the
+    strided kernel's rows; one launch counted; the same from run to
+    run."""
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
-    x = (3 * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+    n = int(np.prod(shape))
+    x = (3 * torch.randn(n + offset, generator=gen, device=cuda_device)
+         ).to(dtype)[offset:].view(shape)
     g = (1 + torch.randn(shape[-1], generator=gen,
                          device=cuda_device)).to(dtype)
     dy = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    widest = 8192 if dtype == torch.bfloat16 else 4096
+    assert rn.bwd_vector_path(x, g, dy) == (
+        offset == 0 and shape[-1] % 8 == 0 and shape[-1] <= widest)
     before = rn.LAUNCHES["rmsnorm_bwd"]
     dx, dg = rn.rmsnorm_bwd(x, g, dy, layer_form=layer_form)
     again = rn.rmsnorm_bwd(x, g, dy, layer_form=layer_form)
@@ -832,6 +844,8 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
         torch.testing.assert_close(got, ref, rtol=TOL[dtype],
                                    atol=TOL[dtype])
         assert torch.equal(got, rerun)
+        if rn.bwd_vector_path(x, g, dy):
+            assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh,causal,window,dtype,variant", [

@@ -81,33 +81,116 @@ def test_rmsnorm_bwd_matches_jax(shape, dtype):
     _close(dg, ga.grad, dtype)
 
 
-def test_rmsnorm_bwd_both_forms_and_order():
-    """The Pallas form differs from the layer's only in dgamma's rounding
-    of ``x * r``; in fp32 the two are one.  dgamma sums rows in blocks of
-    ``BWD_ROWS``, each block's rows in order, then the blocks in order:
-    explicit numpy loops in that order give it bit for bit."""
-    rng = np.random.default_rng(1)
-    rows, d = 37, 40
-    x = torch.as_tensor(rng.standard_normal((rows, d)), dtype=torch.float32)
-    g = torch.as_tensor(rng.standard_normal(d), dtype=torch.float32)
-    dy = torch.as_tensor(rng.standard_normal((rows, d)), dtype=torch.float32)
-    a = rn.rmsnorm_bwd_plain(x, g, dy, layer_form=True)
-    b = rn.rmsnorm_bwd_plain(x, g, dy, layer_form=False)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    xf = x.numpy()
-    r = (1.0 / np.sqrt(rn._sum_squares(x, 4).numpy() * rn._inv(d)
-                       + np.float32(1e-5))).astype(np.float32)
-    part = dy.numpy() * (xf * r)
+def _np_bf16(a):
+    """float32 -> the nearest bf16 (ties to even), as float32."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _np_row_sum(v, vec, threads=rn.THREADS):
+    """``(R, d)`` float32 -> ``(R,)`` in the backward kernel's order:
+    thread ``t`` adds, from zero, the elements of its 16-byte chunks ``t``,
+    ``t + threads``, ... in element order (a short last chunk on the
+    strided kernel); each warp's xor butterfly; the warps' partials (the
+    lanes past them zero) through one more; lane 0's sum."""
+    rows, d = v.shape
+    acc = np.zeros((rows, threads), np.float32)
+    for t in range(threads):
+        for c in range(t * vec, d, threads * vec):
+            for i in range(c, min(c + vec, d)):
+                acc[:, t] = acc[:, t] + v[:, i]
+    lanes = np.arange(32)
+    warps = acc.reshape(rows, threads // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        warps = warps + warps[:, :, lanes ^ off]
+    part = np.zeros((rows, 32), np.float32)
+    part[:, :threads // 32] = warps[:, :, 0]
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[:, lanes ^ off]
+    return part[:, 0]
+
+
+def _np_rmsnorm_bwd(x, g, dy, layer_form, bf16, eps=1e-5):
+    """The backward kernel spelled in numpy loops: ``(dx, dgamma)`` as
+    float32 values of the working type.  The paired row sums
+    (:func:`_np_row_sum`), ``mean = r * sum(g * x) * (1/d)``; dgamma's
+    terms added from zero over each block of ``BWD_ROWS`` rows in order,
+    the blocks' sums into ``BWD_GROUPS`` groups (group ``k`` takes blocks
+    ``k``, ``k + BWD_GROUPS``, ... in order), the groups in order.  r takes
+    the plain version's own sqrt: the CPU torch's is not correctly rounded
+    (the card's is), and the order of the sums is what is held here."""
+    rows, d = x.shape
+    vec = 8 if bf16 else 4
+    rnd = _np_bf16 if bf16 else (lambda a: a)
+    inv = np.float32(rn._inv(d))
+    gx = dy * g
+    ss = _np_row_sum(x * x, vec)
+    sgx = _np_row_sum(gx * x, vec)
+    r = torch.sqrt(torch.as_tensor(ss * inv + np.float32(eps)))
+    r = r.reciprocal().numpy()
+    mean = r * sgx * inv
+    xh = x * r[:, None]
+    dx = rnd(r[:, None] * (gx - xh * mean[:, None]))
+    terms = dy * (rnd(xh) if layer_form else xh)
     blocks = []
     for b0 in range(0, rows, rn.BWD_ROWS):
-        acc = part[b0].copy()
-        for i in range(b0 + 1, min(b0 + rn.BWD_ROWS, rows)):
-            acc = acc + part[i]
+        acc = np.zeros(d, np.float32)
+        for i in range(b0, min(b0 + rn.BWD_ROWS, rows)):
+            acc = acc + terms[i]
         blocks.append(acc)
-    want = blocks[0]
-    for blk in blocks[1:]:
-        want = want + blk
-    np.testing.assert_allclose(a[1].numpy(), want, rtol=1e-6, atol=1e-6)
+    groups = [np.zeros(d, np.float32) for _ in range(rn.BWD_GROUPS)]
+    for b, acc in enumerate(blocks):
+        groups[b % rn.BWD_GROUPS] = groups[b % rn.BWD_GROUPS] + acc
+    total = np.zeros(d, np.float32)
+    for acc in groups:
+        total = total + acc
+    return dx, rnd(total)
+
+
+def _bwd_order_case(dtype, rows, d, layer_form, seed):
+    td = DT[dtype][0]
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(3 * rng.standard_normal((rows, d)),
+                        dtype=torch.float32).to(td)
+    g = torch.as_tensor(1 + rng.standard_normal(d),
+                        dtype=torch.float32).to(td)
+    dy = torch.as_tensor(rng.standard_normal((rows, d)),
+                         dtype=torch.float32).to(td)
+    got = rn.rmsnorm_bwd_plain(x, g, dy, layer_form=layer_form)
+    want = _np_rmsnorm_bwd(*(t.float().numpy() for t in (x, g, dy)),
+                           layer_form, dtype == "bfloat16")
+    for a, b in zip(got, want):
+        assert a.dtype == td
+        np.testing.assert_array_equal(a.float().numpy(), b)
+    return x, g, dy, got
+
+
+def test_rmsnorm_bwd_both_forms_and_order():
+    """The Pallas form differs from the layer's only in dgamma's rounding
+    of ``x * r``; in fp32 the two are one.  The plain version equals the
+    backward kernel's order spelled in numpy loops bit for bit
+    (:func:`_np_rmsnorm_bwd`): a width on the vector path (514 chunks of
+    16 bytes: three a thread for two threads, two for the rest) at a
+    ragged row count whose 35 blocks fill the second pass's groups
+    unevenly."""
+    x, g, dy, a = _bwd_order_case("float32", 549, 2056, True, 1)
+    b = rn.rmsnorm_bwd_plain(x, g, dy, layer_form=False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype,rows,d,layer_form", [
+    ("bfloat16", 37, 1001, True),     # strided: d no multiple of 8
+    ("float32", 300, 1030, False),    # strided: d no multiple of 4
+    ("bfloat16", 300, 4104, True),    # vector path, three chunks a thread
+    ("bfloat16", 17, 2048, False),    # vector path, the Pallas form
+])
+def test_rmsnorm_bwd_order_in_numpy_loops(dtype, rows, d, layer_form):
+    """The plain version against the kernel's order in numpy loops, bit
+    for bit, on the strided kernel's widths (a short last chunk) and on
+    the vector path in bf16, both forms."""
+    _bwd_order_case(dtype, rows, d, layer_form, rows + d)
 
 
 def test_rmsnorm_function_runs_plain_backward_on_cpu():
