@@ -66,14 +66,17 @@ port's two paths:
 * the training path at full width, llama3-8b with its depth cut to 2 of
   32 layers (S=4096, batch 1, fp32 AdamW state, remat): the backward
   kernels (``rmsnorm_bwd``; ``flash_attention_bwd``'s tensor-core kernel,
-  on the trainer's path, and its SIMT kernel) against their plain twins,
-  step 0's loss and gradients against ``impl="plain"``, 4 steps of
-  ``PowerAwareTrainer`` (``build_trainer(..., device="cuda")``) with
-  exact launch counts, a checkpoint restored bit for bit by a fresh
-  trainer, the train CLI's failure recovery in its own process (S=64)
-  and 2 CLI steps at S=2048 in another (the fp32 smoke config: the SIMT
-  backward's path, its launch counts printed by the CLI), and
-  ``ssm_scan`` refusing to run under grad on the card.
+  on the trainer's path, and its SIMT kernel; ``ssm_scan_bwd``) against
+  their plain twins, step 0's loss and gradients against
+  ``impl="plain"``, 4 steps of ``PowerAwareTrainer``
+  (``build_trainer(..., device="cuda")``) with exact launch counts, a
+  checkpoint restored bit for bit by a fresh trainer, the train CLI's
+  failure recovery in its own process (S=64) and 2 CLI steps at S=2048
+  in another (the fp32 smoke config: the SIMT backward's path, its
+  launch counts printed by the CLI); then the hybrid family the same
+  way, zamba2-2.7b with its depth cut to 12 of 54 layers (3 steps;
+  ``ssm_scan`` and its backward kernel, the SIMT flash kernels at dh
+  80).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase, with the ``seconds`` since its
@@ -2786,7 +2789,8 @@ def _llama_params(torch, device):
     return _random_params(torch, device, _llama_config())
 
 
-def _zamba2_params(torch, device):
+def _zamba2_config():
+    """zamba2-2.7b's shipped config, checked at full width."""
     from repro_torch.configs import get_config
 
     cfg = get_config(ZAMBA)
@@ -2797,9 +2801,13 @@ def _zamba2_params(torch, device):
             and cfg.d_ff == 10240 and cfg.vocab == 32000
             and (ssm.state_dim, ssm.head_dim, ssm.expand, ssm.conv_width,
                  ssm.chunk) == (64, 64, 2, 4, SSM_CHUNK)
-            and cfg.dtype == cfg.param_dtype == "bfloat16",
-            f"{ZAMBA} is not at full width")
-    return _random_params(torch, device, cfg)
+            and cfg.dtype == cfg.param_dtype == "bfloat16" and cfg.remat,
+            f"{ZAMBA} is not at full width with remat")
+    return cfg
+
+
+def _zamba2_params(torch, device):
+    return _random_params(torch, device, _zamba2_config())
 
 
 def _random_params(torch, device, cfg):
@@ -2890,37 +2898,72 @@ def expected_launches(cfg) -> dict:
     tc = kernel_variant(getattr(torch, cfg.dtype), cfg.dh) == "tc"
     want["flash_attention_tc"] = want["flash_attention"] if tc else 0
     want["rmsnorm_bwd"] = want["flash_attention_bwd"] = 0
-    want["flash_attention_bwd_tc"] = 0
+    want["flash_attention_bwd_tc"] = want["ssm_scan_bwd"] = 0
     return want
 
 
 def expected_train_launches(cfg) -> dict:
     """Kernel launches of one training step (loss and backward, one
-    microbatch) of a dense-family model at S >= 2048 with ``cfg.remat``:
+    microbatch) of ``cfg``'s model at S >= 2048 with ``cfg.remat``.
+
+    Dense, vlm, moe and encoder (each block under ``torch.utils.checkpoint``):
     the forward's ``2 L + 1`` rmsnorm and ``L`` flash, the recompute of
     every block in the backward (``2 L`` rmsnorm and ``L`` flash: each
     block's norms and attention lie before its last saved activation, so
     the recompute runs through them), and the backward kernels, one per
     forward call: ``2 L + 1`` rmsnorm_bwd and ``L`` flash_attention_bwd.
-    In all ``4 L + 1``, ``2 L`` (all on the tensor-core kernel at bf16 dh
-    128), ``2 L + 1`` and ``L`` (all on the tensor-core backward at bf16
-    dh 128); no ssm_scan."""
+    In all ``4 L + 1``, ``2 L``, ``2 L + 1`` and ``L``.
+
+    Hybrid (``L`` Mamba2 layers in ``n = L / attn_every`` super-blocks,
+    each super-block under checkpoint and each Mamba2 layer under its own
+    inside it; the shared attention block once a super-block): a Mamba2
+    layer runs three times (the forward, the super-block's recompute, its
+    own recompute inside that one's backward), the attention block twice.
+    So ``3 L`` ssm_scan, ``6 L + 4 n + 1`` rmsnorm (a layer's ln and gated
+    norm, the block's two norms, the final norm once), ``2 n`` flash;
+    backward kernels one per forward call: ``L`` ssm_scan_bwd, ``2 L +
+    2 n + 1`` rmsnorm_bwd, ``n`` flash_attention_bwd.
+
+    ssm (xLSTM; ``L_s = n`` sLSTM layers closing the super-blocks, ``L_m =
+    L - n`` mLSTM layers each under its own checkpoint inside them): an
+    mLSTM layer runs three times, an sLSTM layer twice, two norms each:
+    ``6 L_m + 4 L_s + 1`` rmsnorm and ``2 L + 1`` rmsnorm_bwd; no flash.
+
+    Every flash launch (and every flash backward) is on the tensor-core
+    kernel where ``kernel_variant`` (``bwd_kernel_variant``) routes the
+    model's (dtype, dh) there: bf16 dh 64 and 128, not zamba2's dh 80."""
     import torch
 
     from repro_torch.kernels.flash_attention import (bwd_kernel_variant,
                                                      kernel_variant)
+    from repro_torch.models.model import superblock_shape
 
-    n = cfg.n_layers
-    require(cfg.family in ("dense", "vlm", "moe", "encoder") and cfg.remat,
-            f"{cfg.arch_id}: the training formula is the dense families' "
-            f"with remat")
+    require(cfg.remat, f"{cfg.arch_id}: the training formula is remat's")
+    n_layers = cfg.n_layers
+    if cfg.family in ("dense", "vlm", "moe", "encoder"):
+        want = {"rmsnorm": 4 * n_layers + 1, "ssm_scan": 0,
+                "flash_attention": 2 * n_layers, "ssm_scan_bwd": 0,
+                "rmsnorm_bwd": 2 * n_layers + 1,
+                "flash_attention_bwd": n_layers}
+    elif cfg.family == "hybrid":
+        n = superblock_shape(cfg)[0]
+        want = {"rmsnorm": 6 * n_layers + 4 * n + 1,
+                "ssm_scan": 3 * n_layers, "flash_attention": 2 * n,
+                "ssm_scan_bwd": n_layers,
+                "rmsnorm_bwd": 2 * n_layers + 2 * n + 1,
+                "flash_attention_bwd": n}
+    else:
+        n = superblock_shape(cfg)[0]
+        want = {"rmsnorm": 6 * (n_layers - n) + 4 * n + 1, "ssm_scan": 0,
+                "flash_attention": 0, "ssm_scan_bwd": 0,
+                "rmsnorm_bwd": 2 * n_layers + 1, "flash_attention_bwd": 0}
     dtype = getattr(torch, cfg.dtype)
     tc = kernel_variant(dtype, cfg.dh) == "tc"
     tc_bwd = bwd_kernel_variant(dtype, cfg.dh) == "tc"
-    return {"rmsnorm": 4 * n + 1, "ssm_scan": 0, "flash_attention": 2 * n,
-            "flash_attention_tc": 2 * n if tc else 0,
-            "rmsnorm_bwd": 2 * n + 1, "flash_attention_bwd": n,
-            "flash_attention_bwd_tc": n if tc_bwd else 0}
+    want["flash_attention_tc"] = want["flash_attention"] if tc else 0
+    want["flash_attention_bwd_tc"] = \
+        want["flash_attention_bwd"] if tc_bwd else 0
+    return want
 
 
 def _launches():
@@ -2930,6 +2973,7 @@ def _launches():
 
     return {"rmsnorm": rn.LAUNCHES["rmsnorm"],
             "ssm_scan": ss.LAUNCHES["ssm_scan"],
+            "ssm_scan_bwd": ss.LAUNCHES["ssm_scan_bwd"],
             "flash_attention": fa.LAUNCHES["flash_attention"],
             "flash_attention_tc": fa.LAUNCHES["flash_attention_tc"],
             "rmsnorm_bwd": rn.LAUNCHES["rmsnorm_bwd"],
@@ -2943,6 +2987,8 @@ TRAIN_GROUPS = (("flash_attention_bwd_tc", ("bwd_tc_stats", "bwd_tc_dkdv",
                                             "bwd_tc_dq")),
                 ("flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_stats")),
                 ("flash_attention", ("flash_tc_kernel", "flash_kernel")),
+                ("ssm_scan_bwd", ("ssm_bwd_rows", "ssm_bwd_sum")),
+                ("ssm_scan", ("ssm_scan_kernel",)),
                 ("rmsnorm_bwd", ("rmsnorm_bwd",)),
                 ("rmsnorm", ("rmsnorm_",)),
                 ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -3307,6 +3353,25 @@ TRAIN_HOSTS = 8
 #: training is the SIMT backward's path.  The recovery run keeps S=64,
 #: the dense attention under autograd.
 TRAIN_CLI_SEQ = 2048
+#: zamba2-2.7b's training phase: FULL widths, depth cut to ZAMBA_TRAIN_LAYERS
+#: of 54 (two super-blocks: the shared attention block's gradient sums two
+#: uses), S=4096, batch 1, fp32 AdamW state, ZAMBA_TRAIN_STEPS trainer steps.
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS = 12, 3
+#: ssm_scan_bwd's cases besides the training shape (SSM_MAIN, bf16): (shape
+#: (B, H, S, P, N), dtype, a = 0).  fp32 at the training shape; N off the
+#: 32 lanes (16, 40) and the widest (256); P off the 16-row blocks; B 2; S
+#: of one segment and of one step; a = 0 (held bit for bit) at the training
+#: shape and a ragged one.
+SSM_BWD_CASES = ((SSM_MAIN, "float32", False),
+                 ((1, 4, 256, 64, 16), "bfloat16", False),
+                 ((1, 4, 200, 32, 40), "float32", False),
+                 ((1, 2, 64, 24, 256), "bfloat16", False),
+                 ((1, 3, 200, 20, 64), "float32", False),
+                 ((2, 4, 300, 32, 64), "bfloat16", False),
+                 ((1, 4, 8, 64, 64), "bfloat16", False),
+                 ((1, 3, 1, 17, 64), "float32", False),
+                 (SSM_MAIN, "bfloat16", True),
+                 ((1, 3, 100, 5, 40), "float32", True))
 #: rmsnorm_bwd at the training shape: the norms' rows (B * S) of d_model.
 RMSNORM_BWD_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096)
 #: rmsnorm_bwd's other cases: (rows, d, dtype, layer_form, x offset).
@@ -3639,6 +3704,147 @@ def _grads(model) -> dict:
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
+def _train_step0(torch, counters, tr, device, what):
+    """Step 0 from the trainer's weights and first batch: one loss and
+    backward at impl=None and one at impl="plain".  The kernel path's
+    launches are held against :func:`expected_train_launches`, the plain
+    path's at none, the loss and every parameter's gradient normwise
+    within :data:`MODEL_REL_TOL`.  Returns (the launches a step, the
+    line's fields: the losses, the distances, each run's peak memory)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import global_batch
+    from repro_torch.launch.steps import train_batch
+    from repro_torch.models import loss_fn
+
+    model, tcfg = tr.model, tr.mcfg
+    batch = train_batch(global_batch(tr.dcfg, 0), device)
+    runs = {}
+    for impl in (None, "plain"):
+        _zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = loss_fn(tcfg, model, batch, impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[impl] = (float(loss.detach()), _grads(model), _launches(),
+                      torch.cuda.max_memory_allocated() / 1e9)
+        model.zero_grad(set_to_none=True)
+    want_step = expected_train_launches(tcfg)
+    require(runs[None][2] == want_step,
+            f"{what} step 0: launches {runs[None][2]} != {want_step}")
+    require(not any(runs["plain"][2].values()),
+            f"{what} step 0 at impl=plain launched {runs['plain'][2]}")
+    losses = {"kernels": runs[None][0], "plain": runs["plain"][0]}
+    loss_rel = abs(losses["kernels"] - losses["plain"]) / \
+        abs(losses["plain"])
+    grad_rel = {}
+    for name, g in runs[None][1].items():
+        w = runs["plain"][1][name]
+        grad_rel[name] = _rel_err(torch, g.reshape(-1, g.shape[-1]),
+                                  w.reshape(-1, w.shape[-1]))
+    worst = max(grad_rel, key=grad_rel.get)
+    require(np.isfinite(losses["kernels"]) and loss_rel <= MODEL_REL_TOL
+            and grad_rel[worst] <= MODEL_REL_TOL,
+            f"{what} step 0: loss rel err {loss_rel:.3g}, worst gradient "
+            f"{worst} {grad_rel[worst]:.3g} (bar {MODEL_REL_TOL})")
+    peaks = {"kernels": runs[None][3], "plain": runs["plain"][3]}
+    del runs, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want_step, {
+        "step0_loss": losses, "loss_rel_err_vs_plain": loss_rel,
+        "grad_rel_err_vs_plain_max": grad_rel[worst],
+        "grad_rel_err_vs_plain": {k: grad_rel[k] for k in sorted(grad_rel)},
+        "rel_tol": MODEL_REL_TOL, "step0_peak_memory_gb": peaks}
+
+
+def _train_steps(torch, counters, tr, want_step, n_steps, n_params, what):
+    """The main path: the trainer's ``n_steps`` steps, the launch counts
+    set to 0 just before and each step's read around the trainer's own
+    step function, held exactly against ``want_step``.  Returns (the
+    launches, the line's fields: each step's ms, tokens/s and
+    model-FLOPs share, the launches, the peak memory)."""
+    import numpy as np
+
+    per_step, step_fn = [], tr.train_step
+
+    def counted(*args):
+        before = _launches()
+        out = step_fn(*args)
+        per_step.append({k: v - before[k] for k, v in _launches().items()})
+        return out
+
+    tr.train_step = counted
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    try:
+        history = tr.run()
+        torch.cuda.synchronize()
+    finally:
+        tr.train_step = step_fn
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * n_steps for k, v in want_step.items()}
+    require(launches == want and per_step == [want_step] * n_steps,
+            f"{what}: launches {launches} != {want}, or per step "
+            f"{per_step} != {want_step}")
+    require([r.step for r in history] == list(range(n_steps))
+            and all(np.isfinite(r.loss) for r in history),
+            f"{what}: steps {[r.step for r in history]}, losses "
+            f"{[r.loss for r in history]}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = [{"step": r.step, "loss": r.loss, "ms": 1e3 * r.wall_s,
+              "tokens_per_s": tokens / r.wall_s,
+              "model_flops_share": 6 * n_params * tokens
+              / (r.wall_s * BF16_TENSOR_OPS_PER_S),
+              "straggler": r.straggler, "max_cap_w": max(r.caps_w)}
+             for r in history]
+    return launches, {"steps": steps, "launches": launches,
+                      "launches_per_step": want_step,
+                      "peak_memory_gb": peak_gb}
+
+
+def _train_restore(torch, tr, trainer, n_steps, what):
+    """The checkpoint the last step saved, restored by a fresh trainer
+    (``trainer()``): it resumes at step ``n_steps`` with parameters and
+    moments bit-equal.  Returns the line's fields (checkpoint GB, restore
+    s)."""
+    import gc
+
+    from repro_torch.checkpoint.manager import flatten_tree
+
+    saved = tr.ckpt.latest_step()
+    t0 = time.perf_counter()
+    fresh = trainer()
+    restore_s = time.perf_counter() - t0
+    require(saved == n_steps - 1 and fresh.start_step == n_steps,
+            f"{what} checkpoint: saved step {saved}, fresh trainer starts "
+            f"at {fresh.start_step}")
+    pairs = list(zip(flatten_tree(tr.state()), flatten_tree(fresh.state())))
+    require(all(pa == pb and a.dtype == b.dtype and torch.equal(a, b)
+                for (pa, a), (pb, b) in pairs),
+            f"{what} checkpoint: the restored state is not bit-equal")
+    ckpt_gb = sum(f.stat().st_size for f in Path(
+        tr.ckpt.dir).rglob("*.npy")) / 1e9
+    del fresh, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"checkpoint_gb": ckpt_gb, "restore_s": restore_s}
+
+
+def _train_profile(torch, tr, n_steps):
+    """One more trainer step under the profiler: device busy share, top
+    kernels, device ms by :data:`TRAIN_GROUPS`."""
+    from repro_torch.data.pipeline import global_batch
+
+    batch = global_batch(tr.dcfg, n_steps)
+    return _profile(torch, lambda: tr.train_step(
+        tr.model, tr.opt_state, batch, n_steps), top=16,
+        groups=TRAIN_GROUPS)
+
+
 def phase_train_full_width(torch, device, counters, smi):
     """The training path at full width: llama3-8b (d 4096, 32 heads, GQA
     8, d_ff 14336, vocab 128256, bf16, remat), depth cut to
@@ -3646,13 +3852,12 @@ def phase_train_full_width(torch, device, counters, smi):
     ``build_trainer(..., device="cuda")`` and ``PowerAwareTrainer``.
 
     Step 0's loss and every parameter's gradient at impl=None against
-    impl="plain" from the same weights and batch (normwise,
-    :data:`MODEL_REL_TOL`); then :data:`TRAIN_STEPS` trainer steps with
-    the launch counts set to 0 just before and held against
-    :func:`expected_train_launches` per step; the checkpoint the last step
-    saved restored by a fresh trainer (resumes at step 4, parameters and
-    moments bit-equal); one more step under the profiler.  The train CLI
-    runs twice in processes of its own on the card meanwhile: a failure
+    impl="plain" from the same weights and batch (:func:`_train_step0`);
+    then :data:`TRAIN_STEPS` trainer steps with exact launch counts
+    (:func:`_train_steps`); the checkpoint the last step saved restored
+    by a fresh trainer (resumes at step 4, parameters and moments
+    bit-equal); one more step under the profiler.  The train CLI runs
+    twice in processes of its own on the card meanwhile: a failure
     injected at step 6 of 10 on 4 hosts of the smoke config at S=64 (it
     must recover on 3 hosts and reach step 9), and 2 steps at
     :data:`TRAIN_CLI_SEQ`, whose flash backward must run the SIMT kernel.
@@ -3661,13 +3866,7 @@ def phase_train_full_width(torch, device, counters, smi):
     import os
     import tempfile
 
-    import numpy as np
-
-    from repro_torch.checkpoint.manager import flatten_tree
-    from repro_torch.data.pipeline import global_batch
-    from repro_torch.launch.steps import train_batch
     from repro_torch.launch.train import build_trainer
-    from repro_torch.models import loss_fn
 
     t_phase = time.perf_counter()
     _llama_config()
@@ -3698,40 +3897,9 @@ def phase_train_full_width(torch, device, counters, smi):
         tr = trainer()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        model, tcfg = tr.model, tr.mcfg
-        n_params = sum(p.numel() for p in model.parameters())
-        # step 0 from the same weights and batch: the kernel path vs plain
-        batch = train_batch(global_batch(tr.dcfg, 0), device)
-        step0 = {}
-        for impl in (None, "plain"):
-            _zero(counters)
-            loss, _ = loss_fn(tcfg, model, batch, impl=impl)
-            loss.backward()
-            torch.cuda.synchronize()
-            step0[impl] = (float(loss.detach()), _grads(model),
-                           _launches())
-            model.zero_grad(set_to_none=True)
-        want_step = expected_train_launches(tcfg)
-        require(step0[None][2] == want_step,
-                f"train step 0: launches {step0[None][2]} != {want_step}")
-        require(not any(step0["plain"][2].values()),
-                f"train step 0 at impl=plain launched {step0['plain'][2]}")
-        losses0 = {"kernels": step0[None][0], "plain": step0["plain"][0]}
-        loss_rel = abs(losses0["kernels"] - losses0["plain"]) / \
-            abs(losses0["plain"])
-        grad_rel = {}
-        for name, g in step0[None][1].items():
-            grad_rel[name] = _rel_err(torch, g.view(-1, g.shape[-1]),
-                                      step0["plain"][1][name].view(
-                                          -1, g.shape[-1]))
-        require(loss_rel <= MODEL_REL_TOL
-                and max(grad_rel.values()) <= MODEL_REL_TOL,
-                f"train step 0: loss rel err {loss_rel:.3g}, worst gradient "
-                f"{max(grad_rel, key=grad_rel.get)} "
-                f"{max(grad_rel.values()):.3g} (bar {MODEL_REL_TOL})")
-        del step0, batch
-        gc.collect()
-        torch.cuda.empty_cache()
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        want_step, step0 = _train_step0(torch, counters, tr, device,
+                                        "train")
         out, _ = cli.communicate(timeout=600)
         cli_wall = time.perf_counter() - t_cli
         require(cli.returncode == 0
@@ -3748,89 +3916,25 @@ def phase_train_full_width(torch, device, counters, smi):
                 f"train CLI at S={TRAIN_CLI_SEQ} (fp32 smoke config, dh "
                 f"16): exit {cli_simt.returncode}, its flash backward must "
                 f"run the SIMT kernel\n{simt_out}")
-
-        # the main path: TRAIN_STEPS trainer steps, each step's launches
-        # read around the trainer's own step function
-        per_step, step_fn = [], tr.train_step
-
-        def counted(*args):
-            before = _launches()
-            out = step_fn(*args)
-            per_step.append({k: v - before[k]
-                             for k, v in _launches().items()})
-            return out
-
-        tr.train_step = counted
-        torch.cuda.reset_peak_memory_stats()
-        _zero(counters)
-        history = tr.run()
-        torch.cuda.synchronize()
-        launches = _launches()
-        tr.train_step = step_fn
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = {k: v * TRAIN_STEPS for k, v in want_step.items()}
-        require(launches == want and per_step == [want_step] * TRAIN_STEPS,
-                f"train_full_width: launches {launches} != {want}, or per "
-                f"step {per_step} != {want_step}")
-        require([r.step for r in history] == list(range(TRAIN_STEPS))
-                and all(np.isfinite(r.loss) for r in history),
-                f"train_full_width: steps {[r.step for r in history]}, "
-                f"losses {[r.loss for r in history]}")
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        steps = [{"step": r.step, "loss": r.loss, "ms": 1e3 * r.wall_s,
-                  "tokens_per_s": tokens / r.wall_s,
-                  "model_flops_share": 6 * n_params * tokens
-                  / (r.wall_s * BF16_TENSOR_OPS_PER_S),
-                  "straggler": r.straggler, "max_cap_w": max(r.caps_w)}
-                 for r in history]
-
-        # checkpoint round trip: a fresh trainer resumes at step 4
-        saved = tr.ckpt.latest_step()
-        t0 = time.perf_counter()
-        fresh = trainer()
-        restore_s = time.perf_counter() - t0
-        require(saved == TRAIN_STEPS - 1
-                and fresh.start_step == TRAIN_STEPS,
-                f"checkpoint: saved step {saved}, fresh trainer starts at "
-                f"{fresh.start_step}")
-        pairs = list(zip(flatten_tree(tr.state()),
-                         flatten_tree(fresh.state())))
-        require(all(pa == pb and a.dtype == b.dtype and torch.equal(a, b)
-                    for (pa, a), (pb, b) in pairs),
-                "checkpoint: the restored state is not bit-equal")
-        ckpt_gb = sum(p.stat().st_size for p in Path(
-            tr.ckpt.dir).rglob("*.npy")) / 1e9
-        del fresh, pairs
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # one more step under the profiler: device busy share, top kernels
-        batch = global_batch(tr.dcfg, TRAIN_STEPS)
-        prof = _profile(torch, lambda: tr.train_step(
-            tr.model, tr.opt_state, batch, TRAIN_STEPS), top=16,
-            groups=TRAIN_GROUPS)
+        launches, run = _train_steps(torch, counters, tr, want_step,
+                                     TRAIN_STEPS, n_params,
+                                     "train_full_width")
+        restored = _train_restore(torch, tr, trainer, TRAIN_STEPS, "train")
+        prof = _train_profile(torch, tr, TRAIN_STEPS)
     finally:
         for proc in (cli, cli_simt):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
         tmp.cleanup()
-    summary = tr.speedup_summary()
     emit("train_full_width", nvidia_smi=smi, arch=LLAMA,
          reduced={"n_layers": [32, TRAIN_LAYERS]}, batch=TRAIN_BATCH,
          seq=TRAIN_SEQ, params=n_params, state_dtype=tr.ocfg.state_dtype,
-         init_s=init_s, step0_loss=losses0,
-         loss_rel_err_vs_plain=loss_rel,
-         grad_rel_err_vs_plain_max=max(grad_rel.values()),
-         grad_rel_err_vs_plain={k: grad_rel[k] for k in sorted(grad_rel)},
-         rel_tol=MODEL_REL_TOL,
-         grad_note="embed's gradient is an atomic scatter (index_put "
-                   "with accumulate) on both paths: its sums run in no "
-                   "fixed order",
-         steps=steps, launches=launches, launches_per_step=want_step,
-         peak_memory_gb=peak_gb, hosts=TRAIN_HOSTS,
-         power_aware_speedup=summary["speedup"],
-         checkpoint_gb=ckpt_gb, restore_s=restore_s,
+         init_s=init_s, **step0,
+         grad_note="embed's gradient is F.embedding's backward on both "
+                   "paths: each row's terms summed in fp32, rounded once",
+         **run, hosts=TRAIN_HOSTS,
+         power_aware_speedup=tr.speedup_summary()["speedup"], **restored,
          cli_wall_s=cli_wall, cli_simt_seq=TRAIN_CLI_SEQ,
          cli_simt_launches=cli_launches,
          cli_recovery_line=next(ln for ln in out.splitlines()
@@ -3842,41 +3946,184 @@ def phase_train_full_width(torch, device, counters, smi):
     return launches, cli_launches
 
 
-def phase_ssm_grad_guard(torch, device):
-    """ssm_scan under grad on the card raises: its kernel has no backward
-    yet, and the hybrid family's training there is the next slice."""
+def _ssm_bwd_bytes_ops(shape, size: int):
+    """Bytes (x, a, dt, B, C, dy read; dx, da, ddt, dB, dC written) and
+    ~15 fp32 operations per state entry and step (the recompute 4, the g
+    update 3, the row sums gB and gh 2 each, the dB and dC terms 2 each)
+    of one backward."""
+    b, h, s, p, n = shape
+    nbytes = 2 * size * b * h * s * p + 4 * b * h * s * p \
+        + 4 * 4 * b * h * s + 4 * size * b * s * n
+    return nbytes, 15 * b * h * s * p * n
+
+
+def phase_ssm_scan_bwd_kernel(torch, device):
+    """ssm_scan_bwd kernel vs its plain twin at zamba2's training shape
+    (SSM_MAIN: (1, 80, 4096, 64), N=64, bf16) and :data:`SSM_BWD_CASES`,
+    under :data:`SSM_TOL`, bit for bit at a = 0 (exp(0) = 1 on both
+    sides, so any change of order shows), the same from run to run, one
+    launch counted a call.  Times at the training shape by CUDA events:
+    the kernel and the twin (a host loop).  No single PyTorch call
+    computes this backward, so there is no library time."""
     from repro_torch.kernels import ssm_scan as ss
 
-    x = torch.randn((1, 2, 64, 16), device=device, requires_grad=True)
-    a = -torch.rand((1, 2, 64), device=device)
-    dt = torch.rand((1, 2, 64), device=device)
-    bm, cm = (torch.randn((1, 64, 8), device=device) for _ in range(2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+
+    def inputs(b, h, s, p, n, dtype, zero_a):
+        rnd = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=device)
+        a = -rnd(b, h, s).abs() * 0.2
+        return (rnd(b, h, s, p).to(dtype),
+                torch.zeros_like(a) if zero_a else a, rnd(b, h, s).abs(),
+                rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype),
+                rnd(b, h, s, p))
+
+    worst, bitwise, main = {}, {}, None
+    for shape, dtype, zero_a in ((SSM_MAIN, "bfloat16", False),) + \
+            SSM_BWD_CASES:
+        args = inputs(*shape, getattr(torch, dtype), zero_a)
+        chunk = SSM_CHUNK if shape[2] % SSM_CHUNK == 0 else shape[2]
+        before = ss.LAUNCHES["ssm_scan_bwd"]
+        got = ss.ssm_scan_bwd(*args, chunk=chunk)
+        again = ss.ssm_scan_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        ran = ss.LAUNCHES["ssm_scan_bwd"] - before
+        want = ss.ssm_scan_bwd(*args, chunk=chunk, impl="plain")
+        name = "x".join(map(str, shape)) + f" {dtype}" + \
+            (" a=0" if zero_a else "")
+        tol = SSM_TOL[dtype]
+        errs, same = [], []
+        for grad, g, w, r in zip(("dx", "da", "ddt", "dB", "dC"), got, want,
+                                 again):
+            err = _max_abs(torch, g.view(-1, g.shape[-1]),
+                           w.view(-1, w.shape[-1]))
+            errs.append(err)
+            same.append(bool(torch.equal(g, w)))
+            require(g.dtype == w.dtype and g.shape == w.shape
+                    and bool(torch.isfinite(g).all())
+                    and bool(((g.float() - w.float()).abs()
+                              <= tol + tol * w.float().abs()).all())
+                    and bool(torch.equal(g, r)) and (same[-1] or not zero_a),
+                    f"ssm_scan_bwd {name} {grad}: kernel vs twin max abs err "
+                    f"{err:.3g} (tol {tol}), not bit-equal at a = 0, or not "
+                    f"the same from run to run")
+        require(ran == 2, f"ssm_scan_bwd {name}: {ran} launches for 2 calls")
+        worst[name], bitwise[name] = max(errs), all(same)
+        if main is None:
+            main = args
+        del got, again, want
+    torch.cuda.synchronize()
+    calls = {"ms": lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK),
+             "plain_ms": lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK,
+                                                 impl="plain")}
+    times = {"ms": _event_times(torch, {"ms": calls["ms"]}, reps=10)["ms"],
+             "plain_ms": call_ms(torch, calls["plain_ms"], 2)}
+    times["library_ms"] = None
+    times.update(bound(*_ssm_bwd_bytes_ops(SSM_MAIN, 2), FP32_OPS_PER_S))
+    times["bound_share"] = times["bound_ms"] / times["ms"]
+    times["forward_ms"] = call_ms(torch, lambda: ss.ssm_scan(
+        *main[:5], chunk=SSM_CHUNK), 10)
+    emit("ssm_scan_bwd_kernel", tol=SSM_TOL, max_abs_err=worst,
+         bitwise_equal=bitwise, shape=list(SSM_MAIN), chunk=SSM_CHUNK,
+         dtype="bfloat16", timing="CUDA events over back-to-back calls "
+         "after a warm-up (plain_ms: 2 calls of the twin's host loop; "
+         "forward_ms: the forward kernel on the same inputs)",
+         times=times)
+    return max(worst.values()), times
+
+
+def phase_train_full_width_zamba2(torch, device, counters, smi):
+    """The hybrid family's training at full width: zamba2-2.7b (d 2560, 32
+    heads at dh 80, d_ff 10240, vocab 32000, Mamba2 N 64, head dim 64, 80
+    heads, chunk 128, bf16, remat), depth cut to
+    :data:`ZAMBA_TRAIN_LAYERS` of 54 (two super-blocks, so the shared
+    attention block's gradient sums two uses), S=4096, batch 1, fp32
+    AdamW state, through ``build_trainer(..., device="cuda")``.
+
+    Step 0's loss and every parameter's gradient (A_log, dt_bias, D, the
+    conv and the shared block's weights among them) at impl=None against
+    impl="plain" (:func:`_train_step0`; each run's peak memory printed:
+    the plain path's backward twin walks the 4096-step scan in host loops
+    under the Function, with no autograd graph of it); then
+    :data:`ZAMBA_TRAIN_STEPS` trainer steps with exact launch counts a
+    step (``ssm_scan_bwd`` among them; every flash launch on the SIMT
+    kernels at dh 80); the checkpoint the last step saved restored
+    bit-equal by a fresh trainer; one more step under the profiler.
+    Returns the trainer's launch counts."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch.train import build_trainer
+
+    t_phase = time.perf_counter()
+    _zamba2_config()
+    tmp = tempfile.TemporaryDirectory(prefix="train_zamba2_",
+                                      dir=ROOT / "build")
     try:
-        ss.ssm_scan(x, a, dt, bm, cm, chunk=64)
-    except RuntimeError as err:
-        msg = str(err)
-    else:
-        raise SmokeFailure("ssm_scan under grad on the card did not raise")
-    emit("ssm_grad_guard", raised=msg)
+        def trainer():
+            return build_trainer(
+                ZAMBA, smoke=False, steps=ZAMBA_TRAIN_STEPS,
+                hosts=TRAIN_HOSTS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                ckpt_dir=str(Path(tmp.name) / "ckpt"),
+                n_layers=ZAMBA_TRAIN_LAYERS, device=device)
+
+        t0 = time.perf_counter()
+        tr = trainer()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tcfg = tr.mcfg
+        require(tcfg.n_layers == ZAMBA_TRAIN_LAYERS and tcfg.remat
+                and tcfg.family == "hybrid", f"zamba2 trainer: {tcfg}")
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        want_step, step0 = _train_step0(torch, counters, tr, device,
+                                        "zamba2 train")
+        launches, run = _train_steps(torch, counters, tr, want_step,
+                                     ZAMBA_TRAIN_STEPS, n_params,
+                                     "train_full_width_zamba2")
+        restored = _train_restore(torch, tr, trainer, ZAMBA_TRAIN_STEPS,
+                                  "zamba2")
+        prof = _train_profile(torch, tr, ZAMBA_TRAIN_STEPS)
+    finally:
+        tmp.cleanup()
+    emit("train_full_width_zamba2", nvidia_smi=smi, arch=ZAMBA,
+         reduced={"n_layers": [54, ZAMBA_TRAIN_LAYERS]}, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, params=n_params, state_dtype=tr.ocfg.state_dtype,
+         init_s=init_s, **step0, **run,
+         static_memory_gb=(2 + 2 + 8) * n_params / 1e9,
+         memory_note="static_memory_gb: bf16 parameters and gradients and "
+                     "fp32 AdamW moments (12 bytes a parameter); the peaks "
+                     "add activations, the remat recompute and the "
+                     "backward kernels' workspaces (the plain step 0: the "
+                     "twins' host loops, no autograd graph of the scan)",
+         hosts=TRAIN_HOSTS,
+         power_aware_speedup=tr.speedup_summary()["speedup"], **restored,
+         profile_step=prof, phase_wall_s=time.perf_counter() - t_phase)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_phases(torch, device, counters, smi):
     """The training slice: the backward kernels against their plain
-    twins, the full-width training path, the ssm_scan guard."""
+    twins, the full-width training paths of llama3-8b and zamba2-2.7b."""
     rn_err, rn_times = phase_rmsnorm_bwd_kernel(torch, device)
     tc_err, simt_err, fa_times = phase_flash_bwd_kernel(torch, device)
+    ss_err, ss_times = phase_ssm_scan_bwd_kernel(torch, device)
     launches, cli = phase_train_full_width(torch, device, counters, smi)
-    phase_ssm_grad_guard(torch, device)
+    zamba2 = phase_train_full_width_zamba2(torch, device, counters, smi)
     why = ("the reference trains through plain jnp and XLA's autodiff "
            "(no custom_vjp); the port's forward is a ctypes kernel autograd "
            "cannot see through, so its backward is a kernel too")
-    return launches, [
+    return launches, zamba2, [
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
          "replaces": None, "why": why,
          "backward_of": "src/repro/models/layers.py:38",
          "launches": launches["rmsnorm_bwd"],
          "launches_train": launches["rmsnorm_bwd"],
+         "launches_train_zamba2": zamba2["rmsnorm_bwd"],
          "max_abs_err": rn_err, "shape": list(RMSNORM_BWD_MAIN),
          **{k: rn_times[k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_share",
@@ -3901,15 +4148,30 @@ def train_phases(torch, device, counters, smi):
          "launches_note": "launches are the second train CLI run's (its "
                           "own process: the fp32 smoke config at dh 16, "
                           f"S {TRAIN_CLI_SEQ}, 2 steps); launches_train "
-                          "the full-width trainer's, all on the "
-                          "tensor-core kernel",
+                          "llama3-8b trainer's, all on the tensor-core "
+                          "kernel; launches_train_zamba2 the zamba2-2.7b "
+                          "trainer's (dh 80: all on this kernel)",
          "launches_train": launches["flash_attention_bwd"] - launches[
+             "flash_attention_bwd_tc"],
+         "launches_train_zamba2": zamba2["flash_attention_bwd"] - zamba2[
              "flash_attention_bwd_tc"],
          "max_abs_err": simt_err, "shape": list(FLASH_MAIN),
          "ms": fa_times["simt_ms"], "tflops": fa_times["simt_tflops"],
          "bound_share": fa_times["simt_bound_share"],
          **{k: fa_times[k] for k in ("plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "library_bwd_ms")}},
+        {"name": "ssm_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+         "replaces": None, "why": why,
+         "backward_of": "src/repro/models/ssm.py:69",
+         "launches": zamba2["ssm_scan_bwd"],
+         "launches_note": "launches are the zamba2-2.7b trainer's "
+                          f"({ZAMBA_TRAIN_STEPS} steps at "
+                          f"{ZAMBA_TRAIN_LAYERS} layers)",
+         "max_abs_err": ss_err, "shape": list(SSM_MAIN),
+         **{k: ss_times[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bound_share", "library_ms",
+                                     "forward_ms")}},
     ]
 
 
@@ -3977,7 +4239,8 @@ def lm_phases(torch, device, counters, smi):
         gc.collect()
         torch.cuda.empty_cache()
     families = family_phases(torch, device, counters)
-    train, train_entries = train_phases(torch, device, counters, smi)
+    train, ztrain, train_entries = train_phases(torch, device, counters,
+                                                smi)
     serve, prefill = runs[LLAMA]
     zserve, zprefill = runs[ZAMBA]
     dec, pre = rms_times["decode"], rms_times["prefill"]
@@ -3996,6 +4259,7 @@ def lm_phases(torch, device, counters, smi):
          "launches_zamba2": zserve["rmsnorm"],
          "launches_prefill_zamba2": zprefill["rmsnorm"], **rms_families,
          "launches_train": train["rmsnorm"],
+         "launches_train_zamba2": ztrain["rmsnorm"],
          "max_abs_err": rms_err, "shape": [SERVE_BATCH, 4096],
          **{k: dec[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                 "bound_by", "library_ms", "library_call_ms")},
@@ -4012,6 +4276,8 @@ def lm_phases(torch, device, counters, smi):
          "launches_tc_zamba2": zprefill["flash_attention_tc"], **fa_launches,
          "launches_train": train["flash_attention"],
          "launches_tc_train": train["flash_attention_tc"],
+         "launches_train_zamba2": ztrain["flash_attention"],
+         "launches_tc_train_zamba2": ztrain["flash_attention_tc"],
          "max_abs_err": fa_err, "shape": list(FLASH_MAIN),
          **{k: fa_times[k] for k in FLASH_KEYS},
          "shape_zamba2": list(FLASH_ZAMBA),
@@ -4024,7 +4290,8 @@ def lm_phases(torch, device, counters, smi):
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:29",
-         "launches": zprefill["ssm_scan"], "max_abs_err": ss_err,
+         "launches": zprefill["ssm_scan"],
+         "launches_train_zamba2": ztrain["ssm_scan"], "max_abs_err": ss_err,
          "shape": list(SSM_MAIN),
          **{k: ss_times[k] for k in ("ms", "plain_ms", "call_ms", "bound_ms",
                                      "bound_by", "library_ms")}},

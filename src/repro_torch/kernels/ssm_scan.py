@@ -28,7 +28,28 @@ walks it all in one block loop.
 :func:`ssm_scan` dispatches on the tensor's device as
 :func:`repro_torch.kernels.power_step.resolve_impl` does: the plain
 version for CPU tensors, the hand-written kernel (``csrc/ssm_scan.cu``)
-for CUDA tensors, which it launches or raises.
+for CUDA tensors, which it launches or raises.  Under grad mode, with an
+input that requires a gradient, it goes through :class:`SsmScanFunction`,
+whose backward is :func:`ssm_scan_bwd`: the kernel
+``csrc/ssm_scan_bwd.cu`` on CUDA tensors, its plain twin
+:func:`ssm_scan_bwd_plain` on CPU ones.
+
+The backward, with ``g_t = dL/dh_t`` walked in reverse from ``g_S = 0``:
+
+    g_t = exp(a_{t+1}) g_{t+1} + dy_t outer C_t
+    dx_t[p] = dt_t gB_t[p],   gB_t[p] = sum_n g_t[p, n] B_t[n]
+    ddt_t = sum_p x_t[p] gB_t[p]
+    da_t = exp(a_t) sum_p sum_n g_t[p, n] h_{t-1}[p, n]
+    dB_t[n] = sum_h sum_p (dt_t x_t[p]) g_t[p, n]
+    dC_t[n] = sum_h sum_p dy_t[p] h_t[p, n]
+
+``h_{t-1}`` is recomputed forward from saved states, never divided out
+of ``h_t``.  The sums over ``n`` are :func:`_lane_sum`'s; those over
+``p`` take the rows in blocks of :data:`BWD_ROWS`, a pairwise tree over a
+block's rows (adjacent first), then the blocks (and for dB and dC the
+heads, head by head, each head's blocks in order) added one after
+another from the first.  No atomics: the result is the same from run to
+run, and the twin equals the kernel bit for bit where ``exp`` agrees.
 """
 
 from __future__ import annotations
@@ -51,8 +72,14 @@ MAX_STATE = 8 * LANES
 #: point); a and dt are fp32.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches, counted where each launch happens.
-LAUNCHES: Counter = Counter(ssm_scan=0)
+#: Rows of a backward block: the kernel's partial sums over ``p`` are
+#: pairwise trees over these rows (adjacent first), the blocks added in
+#: order after.
+BWD_ROWS = 16
+
+#: Kernel launches, counted where each launch happens (the backward once
+#: a call, whatever its internal launches).
+LAUNCHES: Counter = Counter(ssm_scan=0, ssm_scan_bwd=0)
 
 
 def _check(x, a, dt, Bm, Cm, chunk: int):
@@ -122,6 +149,33 @@ def ssm_scan_plain(x, a, dt, Bm, Cm,
     return y.permute(1, 2, 0, 3).contiguous()
 
 
+def _check_cuda(x, a, dt, Bm, Cm, what: str = "ssm_scan") -> None:
+    """Raise unless the kernels take these inputs: contiguous tensors on
+    one CUDA device, x/Bm/Cm of one type (fp32 or bf16), a/dt fp32,
+    ``N <= 256``."""
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    for t in (x, a, dt, Bm, Cm):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"the CUDA kernel needs every input on one "
+                             f"CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"the {what} kernel takes contiguous tensors")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"the {what} kernel takes float32 or bfloat16 x, "
+                         f"Bm, Cm of one type, got {x.dtype}, {Bm.dtype}, "
+                         f"{Cm.dtype}")
+    if a.dtype != torch.float32 or dt.dtype != torch.float32:
+        raise ValueError(f"the {what} kernel takes float32 a and dt, got "
+                         f"{a.dtype} and {dt.dtype}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"the {what} kernel takes a state of 1 to "
+                         f"{MAX_STATE} entries, got N={n}")
+    if b > 65535 or h > 65535 or min(b, h, s, p) < 1:
+        raise ValueError(f"the {what} kernel takes 1 <= B, H <= 65535 "
+                         f"and S, P >= 1, got {tuple(x.shape)}")
+
+
 def ssm_scan_cuda(x, a, dt, Bm, Cm,
                   chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Launch the hand-written kernel: contiguous tensors on one CUDA
@@ -129,25 +183,7 @@ def ssm_scan_cuda(x, a, dt, Bm, Cm,
     from repro_torch.kernels._build import check, load_library
 
     b, h, s, p, n = _check(x, a, dt, Bm, Cm, chunk)
-    for t in (x, a, dt, Bm, Cm):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"the CUDA kernel needs every input on one "
-                             f"CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("the ssm_scan kernel takes contiguous tensors")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise ValueError(f"the ssm_scan kernel takes float32 or bfloat16 x, "
-                         f"Bm, Cm of one type, got {x.dtype}, {Bm.dtype}, "
-                         f"{Cm.dtype}")
-    if a.dtype != torch.float32 or dt.dtype != torch.float32:
-        raise ValueError(f"the ssm_scan kernel takes float32 a and dt, got "
-                         f"{a.dtype} and {dt.dtype}")
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"the ssm_scan kernel takes a state of 1 to "
-                         f"{MAX_STATE} entries, got N={n}")
-    if b > 65535 or h > 65535 or min(b, h, s, p) < 1:
-        raise ValueError(f"the ssm_scan kernel takes 1 <= B, H <= 65535 "
-                         f"and S, P >= 1, got {tuple(x.shape)}")
+    _check_cuda(x, a, dt, Bm, Cm)
     lib = load_library().lib
     y = torch.empty((b, h, s, p), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -160,21 +196,182 @@ def ssm_scan_cuda(x, a, dt, Bm, Cm,
     return y
 
 
+# ---------------------------------------------------------------- backward
+def _row_tree(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum axis ``dim`` (a multiple of :data:`BWD_ROWS` long) in blocks of
+    :data:`BWD_ROWS`: a pairwise tree over each block, adjacent rows
+    first; the axis becomes the blocks'."""
+    dim = dim % v.dim()
+    v = v.unflatten(dim, (-1, BWD_ROWS))
+    while v.shape[dim + 1] > 1:
+        v = v.unflatten(dim + 1, (-1, 2))
+        v = v.select(dim + 2, 0) + v.select(dim + 2, 1)
+    return v.squeeze(dim + 1)
+
+
+def _in_order(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum axis ``dim`` one term after another, from the first."""
+    acc = v.select(dim, 0)
+    for k in range(1, v.shape[dim]):
+        acc = acc + v.select(dim, k)
+    return acc
+
+
+def ssm_scan_bwd_plain(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
+    """The backward in the kernel's order: ``(dx, da, ddt, dB, dC)``, dx,
+    dB and dC in the input's type, da and ddt fp32.
+
+    In tiles of ``min(chunk, S)`` steps (the result does not depend on
+    it): the state entering each tile from a forward walk as
+    :func:`ssm_scan_plain` rounds it; then, tile by tile in reverse, the
+    tile's states recomputed from the saved one, ``g`` walked back
+    through the tile, and every sum of the tile's steps at once.  The
+    rows are padded with zeros to whole blocks of :data:`BWD_ROWS`;
+    each block's partial sums are pairwise trees over its rows
+    (:func:`_row_tree`), added block after block (:func:`_in_order`),
+    for dB and dC head after head; da is ``exp(a)`` times its sum."""
+    b, h, s, p, n = _check(x, a, dt, Bm, Cm, chunk)
+    if tuple(dy.shape) != (b, h, s, p):
+        raise ValueError(f"dy must be y's shape {(b, h, s, p)}, got "
+                         f"{tuple(dy.shape)}")
+    ch = min(chunk, s)
+    blocks = -(-p // BWD_ROWS)
+    pad = blocks * BWD_ROWS - p
+    dev = x.device
+    # step-major layouts, rows padded with zeros: (S, B, H, PP, 1) etc.
+    xf = F.pad(x.float(), (0, pad)).permute(2, 0, 1, 3)[..., None]
+    dyf = F.pad(dy.float(), (0, pad)).permute(2, 0, 1, 3)[..., None]
+    ea = torch.exp(a.float()).permute(2, 0, 1)[..., None, None]
+    dtf = dt.float().permute(2, 0, 1)[..., None, None]
+    bf = Bm.float().transpose(0, 1)[:, :, None, None, :]
+    cf = Cm.float().transpose(0, 1)[:, :, None, None, :]
+    tiles = list(range(0, s, ch))
+    starts, state = [], torch.zeros((b, h, blocks * BWD_ROWS, n),
+                                    dtype=torch.float32, device=dev)
+    for t0 in tiles:
+        starts.append(state)
+        u = dtf[t0:t0 + ch] * (xf[t0:t0 + ch] * bf[t0:t0 + ch])
+        for i in range(ch):
+            state = ea[t0 + i] * state + u[i]
+    dx = torch.empty((s, b, h, blocks * BWD_ROWS), dtype=torch.float32,
+                     device=dev)
+    part_dt = torch.empty((s, b, h, blocks), dtype=torch.float32,
+                          device=dev)
+    part_da = torch.empty_like(part_dt)
+    part_b = torch.empty((s, b, h, blocks, n), dtype=torch.float32,
+                         device=dev)
+    part_c = torch.empty_like(part_b)
+    g = torch.zeros_like(state)
+    e_next = torch.ones_like(ea[0])          # past the end: g_S = 0
+    for k in reversed(range(len(tiles))):
+        tile = slice(tiles[k], tiles[k] + ch)
+        u = dtf[tile] * (xf[tile] * bf[tile])
+        hs = [starts[k]]
+        for i in range(ch):
+            hs.append(ea[tiles[k] + i] * hs[-1] + u[i])
+        hs = torch.stack(hs)                      # (T + 1, B, H, PP, N)
+        dyc = dyf[tile] * cf[tile]
+        gs = [None] * ch
+        for i in reversed(range(ch)):
+            g = e_next * g + dyc[i]
+            gs[i] = g
+            e_next = ea[tiles[k] + i]
+        gs = torch.stack(gs)                      # (T, B, H, PP, N)
+        gb = _lane_sum(gs * bf[tile])             # (T, B, H, PP)
+        gh = _lane_sum(gs * hs[:-1])
+        dx[tile] = dtf[tile][..., 0] * gb
+        part_dt[tile] = _row_tree(xf[tile][..., 0] * gb, -1)
+        part_da[tile] = _row_tree(gh, -1)
+        part_b[tile] = _row_tree((dtf[tile] * xf[tile]) * gs, -2)
+        part_c[tile] = _row_tree(dyf[tile] * hs[1:], -2)
+    ddt = _in_order(part_dt, -1)
+    da = ea[..., 0, 0] * _in_order(part_da, -1)
+    db = _in_order(part_b.flatten(2, 3), 2)
+    dc = _in_order(part_c.flatten(2, 3), 2)
+    return (dx[..., :p].permute(1, 2, 0, 3).to(x.dtype).contiguous(),
+            da.permute(1, 2, 0).contiguous(),
+            ddt.permute(1, 2, 0).contiguous(),
+            db.transpose(0, 1).to(Bm.dtype).contiguous(),
+            dc.transpose(0, 1).to(Cm.dtype).contiguous())
+
+
+def ssm_scan_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
+    """Launch the backward kernel (``csrc/ssm_scan_bwd.cu``): the
+    forward's inputs as :func:`ssm_scan_cuda` takes them and dy fp32 of
+    y's shape, contiguous, on their device; ``(dx, da, ddt, dB, dC)`` as
+    :func:`ssm_scan_bwd_plain` gives them.  Its scratch (the states
+    entering each segment, the blocks' partial sums) is one fp32 tensor
+    of the size the library asks for."""
+    from repro_torch.kernels._build import check, load_library
+
+    b, h, s, p, n = _check(x, a, dt, Bm, Cm, chunk)
+    _check_cuda(x, a, dt, Bm, Cm, "ssm_scan_bwd")
+    if (tuple(dy.shape) != (b, h, s, p) or dy.dtype != torch.float32
+            or dy.device != x.device or not dy.is_contiguous()):
+        raise ValueError(f"the ssm_scan_bwd kernel takes dy float32 of "
+                         f"y's shape {(b, h, s, p)}, contiguous on "
+                         f"{x.device}, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    lib = load_library().lib
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    da = torch.empty((b, h, s), **f32)
+    ddt = torch.empty((b, h, s), **f32)
+    db, dc = torch.empty_like(Bm), torch.empty_like(Cm)
+    work = torch.empty((lib.repro_ssm_scan_bwd_workspace(b, h, s, p, n),),
+                       **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.repro_ssm_scan_bwd(
+            *(t.data_ptr() for t in (x, a, dt, Bm, Cm, dy, dx, da, ddt, db,
+                                     dc, work)),
+            b, h, s, p, n, _DTYPES[x.dtype], stream)
+    check(code, "ssm_scan_bwd")
+    LAUNCHES["ssm_scan_bwd"] += 1
+    return dx, da, ddt, db, dc
+
+
+def ssm_scan_bwd(x, a, dt, Bm, Cm, dy, *, chunk: int = DEFAULT_CHUNK,
+                 impl: Optional[str] = None):
+    """Dispatch the backward: the kernel for CUDA tensors (it launches or
+    raises), the plain twin for CPU ones."""
+    if resolve_impl(impl, x) == "plain":
+        return ssm_scan_bwd_plain(x, a, dt, Bm, Cm, dy, chunk)
+    return ssm_scan_bwd_cuda(x, a, dt, Bm, Cm, dy.contiguous(), chunk)
+
+
+class SsmScanFunction(torch.autograd.Function):
+    """:func:`ssm_scan` with its backward (:func:`ssm_scan_bwd`); ``impl``
+    is resolved once and serves both directions."""
+
+    @staticmethod
+    def forward(ctx, x, a, dt, Bm, Cm, chunk: int, impl: str):
+        ctx.save_for_backward(x, a, dt, Bm, Cm)
+        ctx.chunk, ctx.impl = chunk, impl
+        if impl == "plain":
+            return ssm_scan_plain(x, a, dt, Bm, Cm, chunk)
+        return ssm_scan_cuda(x, a, dt, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, dt, Bm, Cm = ctx.saved_tensors
+        grads = ssm_scan_bwd(x, a, dt, Bm, Cm, dy, chunk=ctx.chunk,
+                             impl=ctx.impl)
+        return (*grads, None, None)
+
+
 def ssm_scan(x, a, dt, Bm, Cm, *, chunk: int = DEFAULT_CHUNK,
              impl: Optional[str] = None) -> torch.Tensor:
     """x ``(B, H, S, P)``; a/dt ``(B, H, S)``; Bm/Cm ``(B, S, N)`` -> y
     ``(B, H, S, P)`` fp32.  Dispatch (see
     :func:`~repro_torch.kernels.power_step.resolve_impl`): the kernel for
-    CUDA tensors, the plain version (differentiable by autograd) for CPU
-    ones.  The kernel raises under grad mode when an input requires a
-    gradient: it has no backward yet."""
-    if resolve_impl(impl, x) == "plain":
-        return ssm_scan_plain(x, a, dt, Bm, Cm, chunk)
+    CUDA tensors, the plain version for CPU ones; under grad mode, with
+    an input that requires a gradient, through :class:`SsmScanFunction`
+    (the backward kernel on CUDA tensors, the plain twin on CPU ones)."""
+    which = resolve_impl(impl, x)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, a, dt, Bm, Cm)):
-        # the kernel has no backward yet: autograd would take its output
-        # for a constant and return wrong gradients without a word
-        raise RuntimeError("ssm_scan: the CUDA kernel has no backward yet; "
-                           "it cannot run under grad mode with inputs that "
-                           "require a gradient")
+        return SsmScanFunction.apply(x, a, dt, Bm, Cm, chunk, which)
+    if which == "plain":
+        return ssm_scan_plain(x, a, dt, Bm, Cm, chunk)
     return ssm_scan_cuda(x, a, dt, Bm, Cm, chunk)

@@ -37,8 +37,8 @@ kernel's dispatch.  ``decode_step`` writes the cache in place.
 Training: :func:`loss_fn` is ``forward`` plus the fp32 cross-entropy (and
 the MoE auxiliary loss).  The weights are created without gradients (for
 serving); the trainer turns them on with ``model.requires_grad_(True)``.
-Under grad mode the norms and flash attention run through their
-``autograd.Function``s, whose backwards are kernels too.  With
+Under grad mode the norms, flash attention and the selective scan run
+through their ``autograd.Function``s, whose backwards are kernels too.  With
 ``cfg.remat`` each block (dense, vlm, moe, encoder), each Mamba2 layer and
 each super-block (hybrid), each mLSTM layer and each super-block (ssm) is
 recomputed in the backward (``torch.utils.checkpoint``, non-reentrant), as
@@ -48,8 +48,16 @@ and ``L`` flash_attention in the forward, ``2 L`` rmsnorm and ``L``
 flash_attention again in the recompute (every block's norms and attention
 lie before its last saved activation), and ``2 L + 1`` rmsnorm_bwd and
 ``L`` flash_attention_bwd: ``4 L + 1``, ``2 L``, ``2 L + 1`` and ``L`` in
-all.  The hybrid family's ``ssm_scan`` kernel has no backward yet and
-raises under grad on the card.
+all.  The hybrid family (``L`` Mamba2 layers in ``n = L / attn_every``
+super-blocks) nests its checkpoints: a Mamba2 layer runs three times (the
+forward, its super-block's recompute, and its own recompute inside that
+one's backward), the shared attention block twice.  One step launches
+``3 L`` ssm_scan, ``6 L + 4 n + 1`` rmsnorm and ``2 n`` flash_attention,
+and one backward kernel a forward call: ``L`` ssm_scan_bwd, ``2 L + 2 n +
+1`` rmsnorm_bwd and ``n`` flash_attention_bwd.  The ssm family (``n``
+sLSTM layers closing the super-blocks, ``L - n`` mLSTM layers under their
+own checkpoints inside) launches ``6 (L - n) + 4 n + 1`` rmsnorm and ``2 L
++ 1`` rmsnorm_bwd.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -311,11 +320,15 @@ def embed_inputs(cfg: ModelConfig, model: LM,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The first hidden state ``(B, S, d)``: the frames' projection
     (encoder, ``batch["frames"] (B, S, d)``) or the tokens' embedding
-    (``batch["tokens"] (B, S)``), in the compute type."""
+    (``batch["tokens"] (B, S)``), in the compute type.  The gather is
+    ``F.embedding``'s: its backward adds each row's terms in fp32 and
+    rounds once, where an indexing gather's adds them into the bf16
+    gradient one at a time (a token that fills a quarter of a batch
+    then sums 1,000 terms at 8 bits)."""
     cdt = dtype_of(cfg.dtype)
     if cfg.family == "encoder":
         return batch["frames"].to(cdt) @ model.frame_proj
-    return model.embed.to(cdt)[batch["tokens"]]
+    return F.embedding(batch["tokens"], model.embed.to(cdt))
 
 
 def _remat(cfg: ModelConfig, fn, *args):

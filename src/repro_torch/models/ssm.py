@@ -12,7 +12,8 @@ chunk states); that sum is exactly the ``ssm_scan`` kernel's recurrence on
 the same inputs (``a = dt * A``, ``dt = softplus(dt + dt_bias)``, x, B and
 C after the causal conv), so the port's :func:`ssm_forward` runs it as one
 launch of the hand-written ``ssm_scan`` kernel on the card (its plain
-version on the CPU), then adds ``D * x``.  :func:`ssm_decode` is the
+version on the CPU), then adds ``D * x``; under grad mode its backward
+is the hand-written ``ssm_scan_bwd`` kernel (the plain twin on the CPU).  :func:`ssm_decode` is the
 one-step recurrence in plain torch, as in the reference.  The gated
 output norm is the layer RMSNorm at ``eps = 1e-5`` (not the model's
 ``norm_eps``, as in the reference): one launch of the ``rmsnorm`` kernel.

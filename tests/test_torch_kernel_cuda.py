@@ -2,8 +2,9 @@
 the card: ``power_step`` (with ``waterfill``, and the whole-row wave loop
 ``wave_run`` against the engine's plain and per-wave paths), ``rmsnorm``,
 ``flash_attention`` and ``ssm_scan``, the backward kernels
-(``rmsnorm_bwd``, ``flash_attention_bwd`` in both variants) and one
-training loss and backward of a smoke model on the card.  Every test
+(``rmsnorm_bwd``, ``flash_attention_bwd`` in both variants,
+``ssm_scan_bwd``) and one training loss and backward of each family's
+smoke model on the card.  Every test
 here needs an NVIDIA
 GPU with ``nvcc`` and skips elsewhere; the file imports neither ``jax``
 nor ``repro``, so it runs on the GPU machine as it is:
@@ -652,6 +653,73 @@ def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda_device):
         check(code, "ssm_scan")
 
 
+def _bwd_inputs(b, h, s, p, n, dtype, device, seed, zero_a=False):
+    x, a, dt, bm, cm = _scan_inputs(b, h, s, p, n, dtype, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn((b, h, s, p), generator=gen, device=device)
+    return x, torch.zeros_like(a) if zero_a else a, dt, bm, cm, dy
+
+
+@pytest.mark.parametrize("b,h,s,p,n,dtype,zero_a", [
+    (1, 80, 4096, 64, 64, torch.bfloat16, False),  # zamba2's training shape
+    (1, 80, 4096, 64, 64, torch.float32, False),
+    (1, 4, 256, 64, 16, torch.bfloat16, False),    # N off the 32 lanes
+    (1, 4, 200, 32, 40, torch.float32, False),
+    (1, 2, 64, 24, 256, torch.bfloat16, False),    # the widest state
+    (1, 3, 200, 20, 64, torch.float32, False),     # P off the 16-row blocks
+    (2, 4, 300, 32, 64, torch.bfloat16, False),    # B = 2
+    (1, 4, 8, 64, 64, torch.bfloat16, False),      # one segment
+    (1, 3, 1, 17, 64, torch.float32, False),       # one step
+    (1, 80, 4096, 64, 64, torch.bfloat16, True),   # a = 0: bit for bit
+    (1, 3, 100, 5, 40, torch.float32, True),
+    (2, 3, 100, 40, 33, torch.bfloat16, True),
+])
+def test_ssm_scan_bwd_kernel_matches_plain(cuda_device, b, h, s, p, n, dtype,
+                                           zero_a):
+    """The backward kernel against its twin (the same sums in the same
+    order): within SSM_TOL everywhere (only exp may differ), bit for bit
+    at a = 0; the same from run to run (no atomics); one launch counted a
+    call; dx, dB, dC in the input's type, da and ddt fp32."""
+    args = _bwd_inputs(b, h, s, p, n, dtype, cuda_device, s + n + p, zero_a)
+    chunk = 128 if s % 128 == 0 else s
+    before = ss.LAUNCHES["ssm_scan_bwd"]
+    got = ss.ssm_scan_bwd(*args, chunk=chunk)
+    again = ss.ssm_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssm_scan_bwd"] == before + 2
+    want = ss.ssm_scan_bwd(*args, chunk=chunk, impl="plain")
+    types = (dtype, torch.float32, torch.float32, dtype, dtype)
+    for g, w, r, t in zip(got, want, again, types):
+        assert g.dtype == t and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=SSM_TOL[dtype],
+                                   atol=SSM_TOL[dtype])
+        assert torch.equal(g, r)
+        if zero_a:
+            assert torch.equal(g, w)
+
+
+def test_ssm_scan_bwd_kernel_rejects_and_reports_a_failed_launch(
+        cuda_device):
+    """What the kernel cannot take is refused before a launch; a launch
+    the C entry refuses (N = 300) raises through ``check``."""
+    args = _bwd_inputs(1, 2, 64, 8, 16, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="dy float32"):
+        ss.ssm_scan_bwd(*args[:5], args[5].bfloat16())
+    with pytest.raises(ValueError, match="state of 1 to 256"):
+        wide = _bwd_inputs(1, 2, 64, 8, 300, torch.float32, cuda_device, 0)
+        ss.ssm_scan_bwd(*wide)
+    lib = load_library().lib
+    assert lib.repro_ssm_scan_bwd_workspace(1, 2, 64, 8, 300) == -1
+    x, a, dt, bm, cm, dy = args
+    code = lib.repro_ssm_scan_bwd(
+        *(t.data_ptr() for t in (x, a, dt, bm, cm, dy, x, a, dt, bm, cm,
+                                 dy)),
+        1, 2, 64, 8, 300, 0, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError,
+                       match="ssm_scan_bwd kernel launch failed"):
+        check(code, "ssm_scan_bwd")
+
+
 def test_hybrid_forward_on_card_counts_launches(cuda_device):
     """The zamba2 smoke model's forward at S=2048 on the card: one
     ssm_scan per Mamba2 layer, one flash per super-block, 2 L + 2 n_super
@@ -904,40 +972,89 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
             assert _tile_normwise(g, w) <= TC_BWD_TILE_NORMWISE
 
 
-def test_train_grads_on_card_match_plain(cuda_device):
-    """One loss and backward of the llama smoke model in bf16 at dh=64,
-    S=2048, remat on: every kernel launched as the model module's
-    training formula says (forward, recompute, backward; every flash
-    backward on the tensor-core kernel), and the loss and every gradient
-    within 2e-2 normwise of the plain path's."""
+#: One smoke config a family, at S=2048 (the flash path) with remat: (arch,
+#: dtype, head_dim override).  The MoE and xLSTM models run in fp32: with
+#: bf16 random weights, a rounding flips near-tied expert choices and the
+#: whole-model gradients then differ past the bar for that alone (the
+#: serve and prefill phases meet the same with the routing handed over);
+#: in fp32 the kernels equal the plain path bit for bit.  hubert (dh 80,
+#: non-causal) takes the SIMT flash backward, llama and chameleon (bf16 dh
+#: 64) the tensor-core one, zamba2 the SIMT one at its smoke dh 16 and
+#: ssm_scan's backward.
+TRAIN_FAMILIES = {"dense": ("llama3-8b", "bfloat16", 64),
+                  "moe": ("moonshot-v1-16b-a3b", "float32", None),
+                  "hybrid": ("zamba2-2.7b", "bfloat16", None),
+                  "ssm": ("xlstm-350m", "float32", None),
+                  "vlm": ("chameleon-34b", "bfloat16", 64),
+                  "encoder": ("hubert-xlarge", "bfloat16", 80)}
+
+
+def _train_launches(cfg):
+    """One training step's launches with remat (see ``models/model.py``):
+    every remat'd block's kernels run in the forward and again in its
+    recompute; the hybrid's Mamba2 layers and the xLSTM's mLSTM layers
+    sit under a checkpoint inside their super-block's, so they run three
+    times; one backward kernel a forward call."""
+    from repro_torch.models.model import superblock_shape
+
+    L = cfg.n_layers
+    n = superblock_shape(cfg)[0]
+    want = dict.fromkeys(("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                          "flash_attention_tc", "flash_attention_bwd",
+                          "flash_attention_bwd_tc", "ssm_scan",
+                          "ssm_scan_bwd"), 0)
+    if cfg.family == "hybrid":
+        want.update(rmsnorm=6 * L + 4 * n + 1, rmsnorm_bwd=2 * L + 2 * n + 1,
+                    flash_attention=2 * n, flash_attention_bwd=n,
+                    ssm_scan=3 * L, ssm_scan_bwd=L)
+    elif cfg.family == "ssm":
+        want.update(rmsnorm=6 * (L - n) + 4 * n + 1, rmsnorm_bwd=2 * L + 1)
+    else:
+        want.update(rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1,
+                    flash_attention=2 * L, flash_attention_bwd=L)
+    dtype = getattr(torch, cfg.dtype)
+    if fa.kernel_variant(dtype, cfg.dh) == "tc":
+        want["flash_attention_tc"] = want["flash_attention"]
+    if fa.bwd_kernel_variant(dtype, cfg.dh) == "tc":
+        want["flash_attention_bwd_tc"] = want["flash_attention_bwd"]
+    return want
+
+
+@pytest.mark.parametrize("family", list(TRAIN_FAMILIES))
+def test_train_grads_on_card_match_plain(cuda_device, family):
+    """One loss and backward of each family's smoke model at S=2048 with
+    remat on: every kernel launched as the model module's training
+    formula says (forward, recompute, backward), and the loss and every
+    gradient within 2e-2 normwise of the plain path's."""
     from repro_torch.models import loss_fn
 
-    cfg = replace(get_smoke("llama3-8b"), dtype="bfloat16",
-                  param_dtype="bfloat16", head_dim=64, remat=True)
+    arch, dtype, head_dim = TRAIN_FAMILIES[family]
+    cfg = replace(get_smoke(arch), dtype=dtype, param_dtype=dtype,
+                  remat=True, **({"head_dim": head_dim} if head_dim else {}))
+    assert cfg.family == family
     model = init_params(cfg, torch.Generator(device=cuda_device)
                         .manual_seed(0)).requires_grad_(True)
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
-                                     device=cuda_device),
-             "labels": torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+    batch = {"labels": torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
                                      device=cuda_device)}
+    if family == "encoder":
+        batch["frames"] = torch.randn((1, 2048, cfg.d_model), generator=gen,
+                                      device=cuda_device)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab, (1, 2048),
+                                        generator=gen, device=cuda_device)
     runs = {}
     for impl in (None, "plain"):
-        before = {**rn.LAUNCHES, **fa.LAUNCHES}
+        before = {**rn.LAUNCHES, **fa.LAUNCHES, **ss.LAUNCHES}
         loss, _ = loss_fn(cfg, model, batch, impl=impl)
         loss.backward()
         torch.cuda.synchronize()
-        after = {**rn.LAUNCHES, **fa.LAUNCHES}
+        after = {**rn.LAUNCHES, **fa.LAUNCHES, **ss.LAUNCHES}
         runs[impl] = (float(loss.detach()), {n: p.grad.clone()
                                     for n, p in model.named_parameters()},
                       {k: after[k] - before[k] for k in after})
         model.zero_grad(set_to_none=True)
-    L = cfg.n_layers
-    assert runs[None][2] == {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
-                             "flash_attention": 2 * L,
-                             "flash_attention_tc": 2 * L,
-                             "flash_attention_bwd": L,
-                             "flash_attention_bwd_tc": L}
+    assert runs[None][2] == _train_launches(cfg)
     assert not any(runs["plain"][2].values())
     assert runs[None][0] == pytest.approx(runs["plain"][0], rel=2e-2)
     for name, g in runs[None][1].items():
@@ -945,14 +1062,32 @@ def test_train_grads_on_card_match_plain(cuda_device):
         assert float((g.double() - w).norm()) <= 2e-2 * float(w.norm()), name
 
 
-def test_ssm_scan_on_card_raises_under_grad(cuda_device):
-    """No backward kernel yet: the hybrid family cannot train on the card,
-    and says so instead of returning wrong gradients."""
-    x, a, dt, bm, cm = _scan_inputs(1, 2, 128, 16, 8, torch.float32,
-                                    cuda_device)
-    x.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ss.ssm_scan(x, a, dt, bm, cm, chunk=64)
-    with torch.no_grad():
-        assert ss.ssm_scan(x, a, dt, bm, cm, chunk=64).shape == (1, 2, 128,
-                                                                 16)
+def test_ssm_scan_grads_on_card_match_twin(cuda_device):
+    """Under grad on the card, ``ssm_scan`` runs the forward kernel and
+    its backward kernel (one launch each, through ``SsmScanFunction``) and
+    the gradients equal the plain route's (the twin's) within SSM_TOL;
+    inputs that need no gradient get none."""
+    x, a, dt, bm, cm, dy = _bwd_inputs(1, 3, 256, 40, 64, torch.bfloat16,
+                                       cuda_device, 3)
+    runs = {}
+    for impl in (None, "plain"):
+        leaves = [t.clone().requires_grad_(i != 1)
+                  for i, t in enumerate((x, a, dt, bm, cm))]
+        before = (ss.LAUNCHES["ssm_scan"], ss.LAUNCHES["ssm_scan_bwd"])
+        y = ss.ssm_scan(*leaves, chunk=128, impl=impl)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        ran = (ss.LAUNCHES["ssm_scan"] - before[0],
+               ss.LAUNCHES["ssm_scan_bwd"] - before[1])
+        assert ran == ((1, 1) if impl is None else (0, 0))
+        assert leaves[1].grad is None
+        runs[impl] = (y.detach(), [t.grad for t in leaves])
+    torch.testing.assert_close(runs[None][0], runs["plain"][0],
+                               rtol=SSM_TOL[torch.bfloat16],
+                               atol=SSM_TOL[torch.bfloat16])
+    for g, w in zip(runs[None][1], runs["plain"][1]):
+        if w is None:
+            continue
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=SSM_TOL[torch.bfloat16],
+                                   atol=SSM_TOL[torch.bfloat16])

@@ -18,8 +18,10 @@ on the CPU.
   backward keeps p in fp32 (see the kernel's note).
 * The autograd dispatch: under grad, ``rmsnorm`` and ``flash_attention``
   on CPU tensors run their ``autograd.Function`` with the plain backward
-  (no kernel launch counted), and ``ssm_scan`` routed to the kernel
-  under grad raises before any launch.
+  (no kernel launch counted), and so does ``ssm_scan`` (its backward
+  twin ``ssm_scan_bwd_plain``; routed to the kernel with CPU tensors it
+  raises the kernel's own ``ValueError``).  ``ssm_scan_bwd_plain`` itself
+  is held against the reference in ``test_torch_ssm_bwd.py``.
 """
 
 import itertools
@@ -286,19 +288,34 @@ def test_flash_function_runs_plain_backward_on_cpu():
 
 
 def test_ssm_scan_kernel_route_raises_under_grad():
-    """The ssm_scan kernel has no backward yet: routed to it under grad
-    with an input that requires a gradient, the dispatch raises before any
-    launch; without grad mode it goes on to the kernel's checks (here a
-    CPU tensor, which the kernel refuses)."""
+    """Under grad, ``ssm_scan`` goes through ``SsmScanFunction`` on either
+    route: routed to the kernel with CPU tensors it reaches the kernel's
+    own checks and raises their ``ValueError`` (no launch counted, no
+    fallback to the plain version), with or without grad mode; on the
+    plain route the Function's gradients are ``ssm_scan_bwd_plain``'s bit
+    for bit."""
     rng = np.random.default_rng(4)
     f = lambda *shape: torch.as_tensor(  # noqa: E731
         rng.standard_normal(shape), dtype=torch.float32)
     x, a, dt = f(1, 2, 8, 4).requires_grad_(), -f(1, 2, 8).abs(), f(1, 2, 8)
     bm, cm = f(1, 8, 4), f(1, 8, 4)
-    with pytest.raises(RuntimeError, match="no backward"):
+    before = dict(ss.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
         ss.ssm_scan(x, a, dt, bm, cm, chunk=8, impl="cuda")
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         ss.ssm_scan(x, a, dt, bm, cm, chunk=8, impl="cuda")
-    # the plain version stays differentiable by autograd
-    ss.ssm_scan(x, a, dt, bm, cm, chunk=8).sum().backward()
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssm_scan_bwd(x.detach(), a, dt, bm, cm, f(1, 2, 8, 4), chunk=8,
+                        impl="cuda")
+    assert dict(ss.LAUNCHES) == before
+    a, dt, bm, cm = (t.requires_grad_() for t in (a, dt, bm, cm))
+    dy = f(1, 2, 8, 4)
+    y = ss.ssm_scan(x, a, dt, bm, cm, chunk=4)
+    assert y.grad_fn is not None and "SsmScanFunction" in type(
+        y.grad_fn).__name__
+    y.backward(dy)
+    want = ss.ssm_scan_bwd_plain(*(t.detach() for t in (x, a, dt, bm, cm)),
+                                 dy, chunk=4)
+    for got, leaf in zip(want, (x, a, dt, bm, cm)):
+        assert torch.equal(got, leaf.grad)
+    assert dict(ss.LAUNCHES) == before
