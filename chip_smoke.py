@@ -75,8 +75,8 @@ port's two paths:
   in another (the fp32 smoke config: the SIMT backward's path, its
   launch counts printed by the CLI); then the hybrid family the same
   way, zamba2-2.7b with its depth cut to 12 of 54 layers (3 steps;
-  ``ssm_scan`` and its backward kernel, the SIMT flash kernels at dh
-  80).
+  ``ssm_scan`` and its backward kernel, the SIMT flash forward and the
+  tensor-core flash backward at dh 80).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase, with the ``seconds`` since its
@@ -94,6 +94,7 @@ version.  Run from the repository root:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -270,24 +271,121 @@ def call_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps):
-    """Device milliseconds per call of ``fn``: the summed time of the
-    GPU kernels and copies it ran, from ``torch.profiler`` (a profiling run
-    that records no device time is run once more before failing)."""
+#: Device kernels one launch of each wrapper runs (its ``LAUNCHES`` key):
+#: what a profiler session must hold at least, besides the other calls'.
+#: ``flash_attention_tc`` and ``flash_attention_bwd_tc`` are counted
+#: under ``flash_attention`` and ``flash_attention_bwd`` too, so not here.
+KERNELS_PER_LAUNCH = {"wave_run": 1, "power_step": 1, "waterfill": 1,
+                      "rmsnorm": 1, "rmsnorm_bwd": 2, "flash_attention": 1,
+                      "flash_attention_bwd": 3, "ssm_scan": 1,
+                      "ssm_scan_bwd": 2}
+#: Every ``device_ms`` session of this process: reps, the kernel records
+#: it kept, the fewest it must hold, whether it fell short, its device ms
+#: a call and where its records lay (``_record_span``).
+PROFILER_SESSIONS: list = []
+
+
+def _kernels_launched() -> int:
+    """Device kernels the port's wrappers have launched in this process."""
+    return sum(n * c.get(key, 0) for c in _counters()
+               for key, n in KERNELS_PER_LAUNCH.items())
+
+
+#: Host idle seconds at each end of a profiler session.  The profiler
+#: keeps only the device records whose time stamps, carried to the host's
+#: clock, fall inside its session, and that carriage is off by
+#: milliseconds in some sessions, either way: a session whose calls began
+#: at once (the first launch ~1.2 ms after the start) or ended just before
+#: its stop lost the kernels that fell outside, every kernel of a short
+#: session.  ``profiler_probe.py`` (an H100): 43 of 5,824 such sessions
+#: under-recorded (22 recorded nothing), with CUPTI kept between sessions
+#: or not; 0 of 3,720 with the calls begun 20 ms after the start; offsets
+#: of up to 15.7 ms seen, so the hold is 250 ms.  (A second loss, records
+#: missing inside late sessions of a process with millions of launches
+#: behind it, no hold prevents: ``device_ms`` reports it.)
+PROFILE_HOLD_S = 0.25
+
+
+@contextlib.contextmanager
+def profiler_session(torch):
+    """A ``torch.profiler`` session of the device's activity, the host
+    idle for :data:`PROFILE_HOLD_S` after it starts and, once the device
+    has finished the body's work, before it stops."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_HOLD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_HOLD_S)
+
+
+def _record_span(torch, prof, t_first, t_sync) -> dict:
+    """Where a session's device records lie on the host's clock: the
+    first one's start after the first call was made (``lead_ms``) and the
+    last one's end before the device was seen done (``tail_ms``).  Either
+    negative, or far above a launch's latency, is the carriage's offset."""
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return {"lead_ms": None, "tail_ms": None}
+    return {"lead_ms": (min(e.start_ns() for e in events) - t_first) / 1e6,
+            "tail_ms": (t_sync - max(e.end_ns() for e in events)) / 1e6}
+
+
+def device_ms(torch, fn, reps):
+    """Device milliseconds per call of ``fn``: the summed time of the
+    GPU kernels and copies it ran, from a :func:`profiler_session`.
+
+    The session's device records are counted against what ran: at least
+    the kernels the port's wrappers launched in it (their ``LAUNCHES``
+    deltas, :data:`KERNELS_PER_LAUNCH` a launch), and a whole number of
+    records a call (every call runs the same kernels).  A session that
+    records no device time raises.  One that records fewer is a reading:
+    its counts, :func:`_record_span` and its records by kernel go to
+    :data:`PROFILER_SESSIONS` marked ``short``, and
+    :func:`profiler_summary` lists it (its sum is low)."""
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(_self_device_us(e) for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / reps
-    raise SmokeFailure("the profiler saw no device time")
+    before = _kernels_launched()
+    with profiler_session(torch) as prof:
+        t_first = time.time_ns()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        t_sync = time.time_ns()
+    launched = _kernels_launched() - before
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(_self_device_us(e) for e in rows)
+    records = sum(e.count for e in rows)
+    want = max(launched, reps)
+    session = {"reps": reps, "records": records, "at_least": want,
+               "short": records < want or records % reps != 0,
+               "ms": total_us / 1e3 / reps,
+               **_record_span(torch, prof, t_first, t_sync)}
+    if session["short"]:
+        session["by_kernel"] = {e.key[:60]: e.count for e in rows}
+    PROFILER_SESSIONS.append(session)
+    if total_us <= 0:
+        raise SmokeFailure(f"the profiler saw no device time: {session}, "
+                           f"{launched} of the port's kernels launched")
+    return total_us / 1e3 / reps
+
+
+def profiler_summary() -> dict:
+    """What this process's :func:`device_ms` sessions recorded, and the
+    extremes of where their records lay (:func:`_record_span`)."""
+    spans = [r for r in PROFILER_SESSIONS if r["lead_ms"] is not None]
+    return {"sessions": len(PROFILER_SESSIONS),
+            "records": sum(r["records"] for r in PROFILER_SESSIONS),
+            "at_least": sum(r["at_least"] for r in PROFILER_SESSIONS),
+            "short": [r for r in PROFILER_SESSIONS if r["short"]],
+            "hold_s": PROFILE_HOLD_S,
+            "lead_ms_min": min((r["lead_ms"] for r in spans), default=None),
+            "lead_ms_max": max((r["lead_ms"] for r in spans), default=None),
+            "tail_ms_min": min((r["tail_ms"] for r in spans), default=None),
+            "tail_ms_max": max((r["tail_ms"] for r in spans), default=None)}
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
@@ -626,8 +724,6 @@ def phase_profile(torch):
     kernel and of everything else) and the host's parts of the wall:
     building the simulator, the run, and turning the fetched arrays into
     results."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import TorchBatchSimulator
 
     graph, specs, bounds, _ = _full_width_case()
@@ -643,7 +739,7 @@ def phase_profile(torch):
     TorchBatchSimulator._results = timed_results
     try:
         for policy in ("equal-share", "heuristic"):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profiler_session(torch) as prof:
                 t0 = time.perf_counter()
                 sim = TorchBatchSimulator(graph, specs, bounds, policy)
                 t1 = time.perf_counter()
@@ -671,9 +767,15 @@ def phase_profile(torch):
         TorchBatchSimulator._results = make_results
 
 
+@functools.lru_cache(maxsize=1)
 def _padded_case():
     """The six mixed-family members x bound fractions (0.15, 0.4, 0.8),
-    their relative bound steps, and paper-ILP assignments."""
+    their relative bound steps, and paper-ILP assignments (solved once,
+    in threads: the MILP solver releases the interpreter lock;
+    ``phase_step_path`` and ``phase_padded`` share them)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core.ilp import solve_paper_ilp
     from repro_torch.core.power import (max_useful_cluster_bound,
                                         min_feasible_cluster_bound)
@@ -690,8 +792,10 @@ def _padded_case():
             scheds.append(tuple((t, f * bound_w) for t, f in steps))
     # a 5 s cap per solve keeps the slowest members' MILPs short: the
     # kernel and plain runs then share whatever assignment it returns
-    assignments = [solve_paper_ilp(g, sp, b, time_limit=5.0)
-                   for (g, sp), b in zip(items, bounds)]
+    with ThreadPoolExecutor(len(os.sched_getaffinity(0))) as pool:
+        assignments = list(pool.map(
+            lambda item, b: solve_paper_ilp(*item, b, time_limit=5.0),
+            items, bounds))
     return items, bounds, scheds, assignments
 
 
@@ -2931,7 +3035,8 @@ def expected_train_launches(cfg) -> dict:
 
     Every flash launch (and every flash backward) is on the tensor-core
     kernel where ``kernel_variant`` (``bwd_kernel_variant``) routes the
-    model's (dtype, dh) there: bf16 dh 64 and 128, not zamba2's dh 80."""
+    model's (dtype, dh) there: the forward at bf16 dh 64 and 128 (not
+    zamba2's dh 80), the backward at bf16 dh 64, 80 and 128."""
     import torch
 
     from repro_torch.kernels.flash_attention import (bwd_kernel_variant,
@@ -2998,13 +3103,11 @@ TRAIN_GROUPS = (("flash_attention_bwd_tc", ("bwd_tc_stats", "bwd_tc_dkdv",
 
 
 def _profile(torch, fn, top=6, groups=None):
-    """Run ``fn`` once under ``torch.profiler``: wall s, device s and the
-    ``top`` kernels with the most device time (ms; names cut to 70
+    """Run ``fn`` once in a :func:`profiler_session`: wall s, device s
+    and the ``top`` kernels with the most device time (ms; names cut to 70
     characters, the kernels a cut name covers summed); with ``groups``
     ((name, fragments) pairs), the device ms of each group too."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiler_session(torch) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3396,16 +3499,24 @@ FLASH_BWD_CASES = (((1, 4, 4, 256, 64), "float32", False, 0, "simt"),
                    ((1, 2, 1, 192, 256), "bfloat16", True, 0, "simt"),
                    ((1, 2, 1, 192, 256), "float32", False, 70, "simt"),
                    (FLASH_MAIN, "bfloat16", True, 0, "simt"))
-#: The tensor-core kernel's (the table's route): dh 64 and 128; causal,
-#: full and windowed; GQA groups 1, 4 and 8; 64-row last tiles (S = 64 mod
-#: 128).
+#: The tensor-core kernel's (the table's route): dh 64, 80 and 128;
+#: causal, full and windowed; GQA groups 1, 4 and 8; 64-row last tiles (S
+#: = 64 mod 128).  At dh 80: zamba2's training shape (H = Hkv, causal),
+#: hubert's layout (H = Hkv = 16, non-causal), a window, a GQA group of 4
+#: and 64-row last tiles.
 FLASH_BWD_TC_CASES = (((1, 8, 8, 1024, 64), "bfloat16", True, 0, None),
                       ((1, 16, 4, 1024, 128), "bfloat16", False, 0, None),
                       ((1, 16, 2, 2048, 128), "bfloat16", True, 512, None),
                       ((2, 8, 1, 320, 64), "bfloat16", True, 96, None),
                       ((1, 4, 1, 448, 128), "bfloat16", False, 130, None),
                       ((1, 32, 8, 2048, 64), "bfloat16", True, 0, None),
-                      ((1, 4, 4, 192, 128), "bfloat16", True, 0, None))
+                      ((1, 4, 4, 192, 128), "bfloat16", True, 0, None),
+                      (FLASH_ZAMBA, "bfloat16", True, 0, None),
+                      ((1, 16, 16, 2048, 80), "bfloat16", False, 0, None),
+                      ((1, 4, 2, 1024, 80), "bfloat16", True, 200, None),
+                      ((1, 16, 4, 1024, 80), "bfloat16", True, 0, None),
+                      ((2, 4, 1, 320, 80), "bfloat16", True, 96, None),
+                      ((1, 4, 2, 448, 80), "bfloat16", False, 130, None))
 #: The tensor-core backward against its bf16-operand twin, besides
 #: LM_TOL's elementwise bar: normwise over each 64-row tile of each head
 #: (dq: 64 query rows; dk, dv: 64 keys), the largest tile's
@@ -3416,10 +3527,11 @@ FLASH_BWD_TC_CASES = (((1, 8, 8, 1024, 64), "bfloat16", True, 0, None),
 TC_BWD_TILE_NORMWISE = 2e-3
 
 
-#: How the backward kernels' phases time: the profiler's device sums late
-#: in the LM worker dropped kernels (run AO: F.rms_norm's forward read
-#: below its bytes bound), so each time is CUDA events around
-#: back-to-back calls; ``device_ms`` is the profiler's, for comparison.
+#: How the backward kernels' phases time: CUDA events around back-to-back
+#: calls, what a training step pays; ``device_ms`` is the profiler's
+#: device sum, for comparison (its sessions dropped kernels before
+#: :data:`PROFILE_HOLD_S`: run AO read F.rms_norm's forward below its
+#: bytes bound).
 EVENT_TIMING = ("ms, plain_ms, library_ms, library_bwd_ms: CUDA events "
                 "over back-to-back calls after a warm-up (host included "
                 "where the host is slower than the card); device_ms: the "
@@ -3498,6 +3610,8 @@ def phase_rmsnorm_bwd_kernel(torch, device):
                  y, (xr, gr), dy, retain_graph=True)}
     times = _event_times(torch, calls)
     times["device_ms"] = device_ms(torch, calls["ms"], 20)
+    times["device_ms_records"] = {k: PROFILER_SESSIONS[-1][k]
+                                  for k in ("records", "at_least", "short")}
     times.update(bound(*_rmsnorm_bwd_bytes_ops(rows, d, 2), FP32_OPS_PER_S))
     times["bound_share"] = times["bound_ms"] / times["ms"]
     emit("rmsnorm_bwd_kernel", cases=cases, tol=LM_TOL, max_abs_err=worst,
@@ -3557,37 +3671,77 @@ def _flash_bwd_bytes_ops(shape, causal: bool, window: int, size: int):
     return nbytes, 10 * b * h * dh * _causal_pairs(s, causal, window)
 
 
-def phase_flash_bwd_kernel(torch, device):
-    """flash_attention_bwd kernels vs their plain twins (on the forward
-    kernel's output) at the training shape (B=1, H=32, Hkv=8, S=4096,
-    dh=128, bf16, causal: the tensor-core kernel, and the SIMT one
-    forced), :data:`FLASH_BWD_TC_CASES` and :data:`FLASH_BWD_CASES`,
-    under :data:`LM_TOL`, the same from run to run, each launch counted
-    on the variant ``bwd_kernel_variant`` names.  The tensor-core kernel
-    is held against the bf16-operand twin (its rounding) and the fp32
-    twin, and to :data:`TC_BWD_TILE_NORMWISE` against the bf16-operand
-    twin; a planted fault (one tile pair's share taken out of the
-    kernel's dq and dk at the training shape) must read above that bar.
-    The SIMT kernel is held against the fp32 twin.  Times at the training
-    shape: both kernels, both twins, and SDPA forward + backward through
-    autograd and backward alone (the library's yardstick: the port never
-    calls it), by CUDA events."""
+def _flash_bwd_times(torch, shape, inputs, reps):
+    """Times of the flash backward at one causal bf16 shape, by CUDA
+    events (:func:`_event_times`): the kernel the table routes the shape
+    to (``ms``), the SIMT kernel forced, both twins, and SDPA forward +
+    backward through autograd and backward alone (the library's
+    yardstick: the port never calls it); the bound (FA2's 10 dh a kept
+    pair) and the shares."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
+    q, k, v, o, do = inputs
+    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa(*qkv):
+        return F.scaled_dot_product_attention(*qkv, is_causal=True,
+                                              enable_gqa=True)
+
+    y = sdpa(qr, kr, vr)
+    calls = {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, do),
+             "simt_ms": lambda: fa.flash_attention_bwd_cuda(
+                 q, k, v, o, do, variant="simt"),
+             "plain_ms": lambda: fa.flash_attention_bwd(q, k, v, o, do,
+                                                        impl="plain"),
+             "plain_bf16_ms": lambda: fa.flash_attention_bwd_plain(
+                 q, k, v, o, do, operands="bf16"),
+             "library_ms": lambda: sdpa(qr, kr, vr).backward(do),
+             "library_bwd_ms": lambda: torch.autograd.grad(
+                 y, (qr, kr, vr), do, retain_graph=True)}
+    times = _event_times(torch, calls, reps=reps)
+    times["variant"] = fa.bwd_kernel_variant(q.dtype, q.shape[-1])
+    times.update(bound(*_flash_bwd_bytes_ops(shape, True, 0, 2),
+                       BF16_TENSOR_OPS_PER_S))
+    times["tflops"] = times["ops"] / (times["ms"] * 1e9)
+    times["simt_tflops"] = times["ops"] / (times["simt_ms"] * 1e9)
+    times["bound_share"] = times["bound_ms"] / times["ms"]
+    times["simt_bound_share"] = times["bound_ms"] / times["simt_ms"]
+    times["ops_done"] = 16 * times["ops"] / 10   # 16 dh a kept pair
+    times["speedup_vs_simt"] = times["simt_ms"] / times["ms"]
+    times["vs_library_bwd"] = times["ms"] / times["library_bwd_ms"]
+    return times
+
+
+def phase_flash_bwd_kernel(torch, device):
+    """flash_attention_bwd kernels vs their plain twins (on the forward
+    kernel's output) at the training shape (B=1, H=32, Hkv=8, S=4096,
+    dh=128, bf16, causal: the tensor-core kernel, and the SIMT one
+    forced), :data:`FLASH_BWD_TC_CASES` (zamba2's training shape, dh 80,
+    among them) and :data:`FLASH_BWD_CASES`, under :data:`LM_TOL`, the
+    same from run to run, each launch counted on the variant
+    ``bwd_kernel_variant`` names.  The tensor-core kernel is held against
+    the bf16-operand twin (its rounding) and the fp32 twin, and to
+    :data:`TC_BWD_TILE_NORMWISE` against the bf16-operand twin; a planted
+    fault (one tile pair's share taken out of the kernel's dq and dk at
+    llama's and at zamba2's training shapes) must read above that bar.
+    The SIMT kernel is held against the fp32 twin.  Times at both
+    training shapes (:func:`_flash_bwd_times`), by CUDA events."""
+    from repro_torch.kernels import flash_attention as fa
+
     gen = torch.Generator(device=device)
     gen.manual_seed(12)
-    worst, worst_fp32, variants, inputs = {}, {}, {}, None
+    worst, worst_fp32, variants = {}, {}, {}
     tile16, tile32 = {}, {}
-    twins = main_twins = main_got = None
+    kept = {}   # shape -> (inputs, twins, kernel's dq, dk, dv)
     for shape, dtype, causal, window, force in \
             ((FLASH_MAIN, "bfloat16", True, 0, None),) + FLASH_BWD_TC_CASES \
             + FLASH_BWD_CASES:
         b, h, hkv, s, dh = shape
         td = getattr(torch, dtype)
-        if shape == FLASH_MAIN and inputs is not None:
-            (q, k, v, o, do), twins = inputs, main_twins
+        if shape in kept and dtype == "bfloat16" and causal and not window:
+            (q, k, v, o, do), twins, _ = kept[shape]
         else:
             q, k, v, do = (torch.randn(sh, generator=gen,
                                        device=device).to(td)
@@ -3634,50 +3788,28 @@ def phase_flash_bwd_kernel(torch, device):
                         f"bf16-operand twin (bar {TC_BWD_TILE_NORMWISE})")
         worst[name], worst_fp32[name] = max(errs), max(errs32)
         variants[name] = variant
-        if inputs is None:
-            inputs, main_twins, main_got = (q, k, v, o, do), twins, got
-    planted = dict(zip("qk", _planted_tile_fault(torch, fa, *inputs,
-                                                 *main_got[:2])))
-    planted = {g: {"tile": _tile_normwise(torch, a, main_twins["bf16"][i]),
-                   "tensor": _rel_err(torch, a, main_twins["bf16"][i])}
-               for i, (g, a) in enumerate(planted.items())}
-    del twins, main_twins, main_got
+        if shape in (FLASH_MAIN, FLASH_ZAMBA) and shape not in kept:
+            kept[shape] = ((q, k, v, o, do), twins, got)
+    planted = {}
+    for tag, shape in (("", FLASH_MAIN), ("_zamba2", FLASH_ZAMBA)):
+        inputs, twins, got = kept[shape]
+        faulty = _planted_tile_fault(torch, fa, *inputs, *got[:2])
+        planted[f"planted_fault{tag}"] = {
+            g: {"tile": _tile_normwise(torch, a, twins["bf16"][i]),
+                "tensor": _rel_err(torch, a, twins["bf16"][i])}
+            for i, (g, a) in enumerate(zip("qk", faulty))}
+    inputs = {shape: kept[shape][0] for shape in kept}
+    del kept, twins, got
     torch.cuda.synchronize()
-    q, k, v, o, do = inputs
-    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-
-    def sdpa(*qkv):
-        return F.scaled_dot_product_attention(*qkv, is_causal=True,
-                                              enable_gqa=True)
-
-    y = sdpa(qr, kr, vr)
-    calls = {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, do),
-             "simt_ms": lambda: fa.flash_attention_bwd_cuda(
-                 q, k, v, o, do, variant="simt"),
-             "plain_ms": lambda: fa.flash_attention_bwd(q, k, v, o, do,
-                                                        impl="plain"),
-             "plain_bf16_ms": lambda: fa.flash_attention_bwd_plain(
-                 q, k, v, o, do, operands="bf16"),
-             "library_ms": lambda: sdpa(qr, kr, vr).backward(do),
-             "library_bwd_ms": lambda: torch.autograd.grad(
-                 y, (qr, kr, vr), do, retain_graph=True)}
-    times = _event_times(torch, calls, reps=10)
-    times["variant"] = fa.bwd_kernel_variant(q.dtype, q.shape[-1])
-    times.update(bound(*_flash_bwd_bytes_ops(FLASH_MAIN, True, 0, 2),
-                       BF16_TENSOR_OPS_PER_S))
-    times["tflops"] = times["ops"] / (times["ms"] * 1e9)
-    times["simt_tflops"] = times["ops"] / (times["simt_ms"] * 1e9)
-    times["bound_share"] = times["bound_ms"] / times["ms"]
-    times["simt_bound_share"] = times["bound_ms"] / times["simt_ms"]
-    times["ops_done"] = 16 * times["ops"] / 10   # 16 dh a kept pair
-    times["speedup_vs_simt"] = times["simt_ms"] / times["ms"]
+    times = _flash_bwd_times(torch, FLASH_MAIN, inputs[FLASH_MAIN], 10)
+    zamba = _flash_bwd_times(torch, FLASH_ZAMBA, inputs[FLASH_ZAMBA], 5)
     emit("flash_bwd_kernel", tol=LM_TOL, max_abs_err=worst,
          max_abs_err_vs_fp32_twin=worst_fp32, variants=variants,
          tile_normwise_bar=TC_BWD_TILE_NORMWISE, tile_normwise=tile16,
-         tile_normwise_fp32_twin=tile32, planted_fault=planted,
+         tile_normwise_fp32_twin=tile32, **planted,
          shape=list(FLASH_MAIN), timing="CUDA events over back-to-back "
-         "calls after a warm-up (no profiler sum: in the LM worker it "
-         "recorded a fifth of this kernel's launches or fewer)",
+         "calls after a warm-up, in turns (each call, then each again in "
+         "reverse order)",
          twins="the tensor-core kernel is held against "
                "flash_attention_bwd_plain(operands='bf16') (max_abs_err, "
                "tile_normwise) and the fp32 twin "
@@ -3690,14 +3822,18 @@ def phase_flash_bwd_kernel(torch, device):
          library_note="library_ms is SDPA forward + backward through "
                       "autograd, library_bwd_ms its backward alone (a "
                       "retained graph); ops is FA2's 10 dh a kept pair, "
-                      "ops_done the 16 dh the three passes run",
-         times=times)
-    require(min(r["tile"] for r in planted.values()) > TC_BWD_TILE_NORMWISE,
-            f"flash_bwd: the planted fault reads {planted}, within the "
-            f"tile bar {TC_BWD_TILE_NORMWISE}")
+                      "ops_done the 16 dh the three passes run; "
+                      "vs_library_bwd the kernel's ms over SDPA's "
+                      "backward alone",
+         times=times, shape_zamba2=list(FLASH_ZAMBA), times_zamba2=zamba)
+    for key, faults in planted.items():
+        require(min(r["tile"] for r in faults.values())
+                > TC_BWD_TILE_NORMWISE,
+                f"flash_bwd: the {key} reads {faults}, within the tile bar "
+                f"{TC_BWD_TILE_NORMWISE}")
     tc = {n: e for n, e in worst.items() if variants[n] == "tc"}
     simt = {n: e for n, e in worst.items() if variants[n] == "simt"}
-    return max(tc.values()), max(simt.values()), times
+    return max(tc.values()), max(simt.values()), times, zamba
 
 
 def _grads(model) -> dict:
@@ -4047,9 +4183,10 @@ def phase_train_full_width_zamba2(torch, device, counters, smi):
     the plain path's backward twin walks the 4096-step scan in host loops
     under the Function, with no autograd graph of it); then
     :data:`ZAMBA_TRAIN_STEPS` trainer steps with exact launch counts a
-    step (``ssm_scan_bwd`` among them; every flash launch on the SIMT
-    kernels at dh 80); the checkpoint the last step saved restored
-    bit-equal by a fresh trainer; one more step under the profiler.
+    step (``ssm_scan_bwd`` among them; at dh 80 every flash forward on
+    the SIMT kernel and every flash backward on the tensor-core one); the
+    checkpoint the last step saved restored bit-equal by a fresh trainer;
+    one more step under the profiler.
     Returns the trainer's launch counts."""
     import gc
     import tempfile
@@ -4109,7 +4246,8 @@ def train_phases(torch, device, counters, smi):
     """The training slice: the backward kernels against their plain
     twins, the full-width training paths of llama3-8b and zamba2-2.7b."""
     rn_err, rn_times = phase_rmsnorm_bwd_kernel(torch, device)
-    tc_err, simt_err, fa_times = phase_flash_bwd_kernel(torch, device)
+    tc_err, simt_err, fa_times, fa_zamba = phase_flash_bwd_kernel(torch,
+                                                                  device)
     ss_err, ss_times = phase_ssm_scan_bwd_kernel(torch, device)
     launches, cli = phase_train_full_width(torch, device, counters, smi)
     zamba2 = phase_train_full_width_zamba2(torch, device, counters, smi)
@@ -4134,11 +4272,17 @@ def train_phases(torch, device, counters, smi):
          "backward_of": "src/repro/models/attention.py:96",
          "launches": launches["flash_attention_bwd_tc"],
          "launches_train": launches["flash_attention_bwd_tc"],
+         "launches_train_zamba2": zamba2["flash_attention_bwd_tc"],
          "max_abs_err": tc_err, "shape": list(FLASH_MAIN),
          **{k: fa_times[k] for k in ("ms", "plain_bf16_ms", "bound_ms",
                                      "bound_by", "bound_share", "library_ms",
                                      "library_bwd_ms", "tflops")},
-         "plain_ms": fa_times["plain_bf16_ms"]},
+         "plain_ms": fa_times["plain_bf16_ms"],
+         "shape_zamba2": list(FLASH_ZAMBA),
+         **{f"{k}_zamba2": fa_zamba[k] for k in (
+             "ms", "bound_ms", "bound_by", "bound_share", "library_ms",
+             "library_bwd_ms", "tflops", "vs_library_bwd")},
+         "plain_ms_zamba2": fa_zamba["plain_bf16_ms"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": None, "why": why,
@@ -4148,9 +4292,10 @@ def train_phases(torch, device, counters, smi):
          "launches_note": "launches are the second train CLI run's (its "
                           "own process: the fp32 smoke config at dh 16, "
                           f"S {TRAIN_CLI_SEQ}, 2 steps); launches_train "
-                          "llama3-8b trainer's, all on the tensor-core "
-                          "kernel; launches_train_zamba2 the zamba2-2.7b "
-                          "trainer's (dh 80: all on this kernel)",
+                          "the llama3-8b trainer's and "
+                          "launches_train_zamba2 the zamba2-2.7b "
+                          "trainer's (bf16 at dh 128 and 80: all on the "
+                          "tensor-core kernel)",
          "launches_train": launches["flash_attention_bwd"] - launches[
              "flash_attention_bwd_tc"],
          "launches_train_zamba2": zamba2["flash_attention_bwd"] - zamba2[
@@ -4159,7 +4304,11 @@ def train_phases(torch, device, counters, smi):
          "ms": fa_times["simt_ms"], "tflops": fa_times["simt_tflops"],
          "bound_share": fa_times["simt_bound_share"],
          **{k: fa_times[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "library_bwd_ms")}},
+                                     "library_ms", "library_bwd_ms")},
+         "shape_zamba2": list(FLASH_ZAMBA), "ms_zamba2": fa_zamba["simt_ms"],
+         "bound_share_zamba2": fa_zamba["simt_bound_share"],
+         **{f"{k}_zamba2": fa_zamba[k] for k in (
+             "plain_ms", "bound_ms", "library_ms", "library_bwd_ms")}},
         {"name": "ssm_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
          "replaces": None, "why": why,
@@ -4176,10 +4325,10 @@ def train_phases(torch, device, counters, smi):
 
 
 def _lm_worker(queue, smi) -> None:
-    """Worker process: the LM phases on the card.  A fresh process gets a
-    fresh profiler: in one process, after the wave engine's phases, the
-    profiler stopped recording device time (an H100 run of this script).
-    Sends back the LM kernels' entries, or the traceback of a failure."""
+    """Worker process: the LM phases on the card, in a CUDA context of
+    their own (the LM weights never share the card with the wave
+    engine's state).  Sends back the LM kernels' entries, or the
+    traceback of a failure."""
     import traceback
 
     try:
@@ -4241,6 +4390,7 @@ def lm_phases(torch, device, counters, smi):
     families = family_phases(torch, device, counters)
     train, ztrain, train_entries = train_phases(torch, device, counters,
                                                 smi)
+    emit("profiler_sessions", process="lm_worker", **profiler_summary())
     serve, prefill = runs[LLAMA]
     zserve, zprefill = runs[ZAMBA]
     dec, pre = rms_times["decode"], rms_times["prefill"]
@@ -4425,6 +4575,7 @@ def main() -> int:
                 or ln.startswith("[")])
 
     kernels = sim_phases(torch, device, _counters(), smi)
+    emit("profiler_sessions", process="main", **profiler_summary())
     kernels += run_lm_phases(smi)
     for entry in kernels:    # each source's nvcc seconds in this run
         entry["build_s"] = kl.source_s.get(Path(entry["source"]).name)

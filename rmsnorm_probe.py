@@ -387,16 +387,14 @@ def _normwise(torch, got, want, dtype) -> bool:
 
 def kernel_us(torch, run, reps: int = 50) -> dict:
     """Device microseconds a call of ``run`` by kernel name (the function
-    name before its template or argument list), from ``torch.profiler``
-    over ``reps`` back-to-back calls after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
-
+    name before its template or argument list), from a
+    ``chip_smoke.profiler_session`` over ``reps`` back-to-back calls after
+    one warm-up call."""
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with cs.profiler_session(torch) as prof:
         for _ in range(reps):
             run()
-        torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:

@@ -6,7 +6,7 @@
 // (blocked_attend), and src/repro/ has no custom_vjp.  The port's forward is
 // a hand-written kernel called through ctypes, which autograd cannot see
 // through; this kernel is the backward of that forward for bf16 at head dims
-// 64 and 128, redesigned for the tensor cores from the SIMT
+// 64, 80 and 128, redesigned for the tensor cores from the SIMT
 // flash_attention_bwd.cu (which keeps fp32 and the other head dims).
 //
 // Layout as the forward's: q, o, do, dq (B, H, Sq, dh); k, v, dk, dv
@@ -54,11 +54,24 @@
 // kernels/flash_attention.py: tc_bwd_q_tiles and tc_kv_tiles mirror the
 // tile rules for the CPU tests.
 //
-// Bound on this card: operations.  At the training shape (B=1, H=32,
-// Hkv=8, S=4096, dh=128, causal) the three kernels do 16 * dh FLOP a kept
-// query/key pair (s three times, dp twice, dv, dk, dq), 0.55 TFLOP, 0.556
-// ms at the 989 TFLOP/s of the bf16 tensor cores; FA2's 10 * dh would be
-// 0.3475 ms.  q, k, v, o, do and the gradients are 84 MB (0.025 ms).
+// dh = 80 (zamba2's shared attention block, hubert's encoder) is built as
+// the forward builds it: a row takes two 64-column swizzled blocks (the dh
+// 128 footprint in shared memory), the tensor maps carry the true row of
+// 80 (160 bytes) and TMA fills columns 80-127 of the second block with
+// zeros.  No product reads them: S = Q K^T and dP = dO V^T run depth 80 as
+// 5 k16 slices, and dV, dK and dQ write N = 80 (wgmma m64n80k16), their
+// MN-major B operands (dO, Q, K) spanning the two blocks as the forward's
+// V does.  D and the stores take a row's 80 columns as 5 16-byte loads a
+// half row and 10 groups of 8.
+//
+// Bound on this card: operations.  At llama3-8b's training shape (B=1,
+// H=32, Hkv=8, S=4096, dh=128, causal) the three kernels do 16 * dh FLOP a
+// kept query/key pair (s three times, dp twice, dv, dk, dq), 0.55 TFLOP,
+// 0.556 ms at the 989 TFLOP/s of the bf16 tensor cores; FA2's 10 * dh
+// would be 0.3475 ms.  q, k, v, o, do and the gradients are 84 MB (0.025
+// ms).  At zamba2-2.7b's (B=1, H=Hkv=32, S=4096, dh=80, causal) FA2's
+// count is 0.215 TFLOP, 0.217 ms (16 * dh: 0.3475 ms), against 168 MB
+// (0.050 ms).
 
 #include <math.h>
 
@@ -83,8 +96,8 @@ constexpr unsigned kFull = 0xffffffffu;
 
 template <int DH>
 struct Tile {
-  static_assert(DH % kAtom == 0, "dh 64 or 128");
-  static constexpr int kBlocks = DH / kAtom;                // 64-column blocks
+  static_assert(DH % 16 == 0 && DH <= 2 * kAtom, "dh 64, 80 or 128");
+  static constexpr int kBlocks = (DH + kAtom - 1) / kAtom;  // 64-column blocks
   static constexpr int kBytes = kBlocks * kTileBlock;       // a 64-row tile
   static constexpr int kSlices = DH / 16;                   // k16 slices of a row
 };
@@ -721,9 +734,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 // q, o, do, dq: (B, H, Sq, dh); k, v, dk, dv: (B, Hkv, Sk, dh); contiguous
 // bf16 device tensors, 16-byte aligned; ws: fp32 scratch of 3 * B * H * Sq,
-// 16-byte aligned.  Sq and Sk multiples of 64, H a multiple of Hkv, dh 64
-// or 128; window 0 means none.  Launches three kernels on `stream`; returns the
-// CUDA error code of the launches (0 on success).
+// 16-byte aligned.  Sq and Sk multiples of 64, H a multiple of Hkv, dh 64,
+// 80 or 128; window 0 means none.  Launches three kernels on `stream`;
+// returns the CUDA error code of the launches (0 on success).
 extern "C" int repro_flash_attention_bwd_tc(const void* q, const void* k, const void* v,
                                             const void* o, const void* dout, void* dq, void* dk,
                                             void* dv, void* ws, int B, int H, int Hkv, int Sq,
@@ -744,6 +757,9 @@ extern "C" int repro_flash_attention_bwd_tc(const void* q, const void* k, const 
     case 64:
       return static_cast<int>(
           launch<64>(q, k, v, o, dout, dq, dk, dv, w, B, H, Hkv, Sq, Sk, scale, causal, window, s));
+    case 80:
+      return static_cast<int>(
+          launch<80>(q, k, v, o, dout, dq, dk, dv, w, B, H, Hkv, Sq, Sk, scale, causal, window, s));
     case 128:
       return static_cast<int>(launch<128>(q, k, v, o, dout, dq, dk, dv, w, B, H, Hkv, Sq, Sk,
                                           scale, causal, window, s));

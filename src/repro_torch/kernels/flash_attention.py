@@ -38,7 +38,8 @@ that is not bit-equal to the plain loop (the tensor-core kernel, SDPA,
 the plain loop itself at another kv tile) puts that model's bf16 logits
 ~3.2-3.3% normwise from the plain path's, above the 2e-2 its full-width
 check holds them to (``PERF.md``, PR 14).  ``variant="tc"`` runs the
-tensor-core kernel at dh 80 all the same.
+tensor-core kernel at dh 80 all the same.  That bar is the forward's
+logits': the backward at dh 80 runs on the tensor cores (below).
 
 Any other pair raises.  Every launch counts under
 ``LAUNCHES["flash_attention"]``; the tensor-core kernel's also under
@@ -52,15 +53,18 @@ which saves q, k, v and the output and whose backward is
 :func:`flash_attention_bwd_plain` for CPU ones.  Two kernels compute the
 backward, picked by :data:`BWD_KERNEL_VARIANTS`:
 
-* ``"tc"`` (``csrc/flash_attention_bwd_tc.cu``) for bf16 at dh 64 and
-  128 (:data:`TC_BWD_HEAD_DIMS`): wgmma and TMA, three passes.  It rounds p and ds to bf16 before the
-  products that take them (``flash_attention_bwd_plain(...,
-  operands="bf16")`` spells this); :func:`tc_bwd_q_tiles`,
-  :func:`tc_bwd_tile_masked` and :func:`tc_kv_tiles` mirror its tile
-  rules.
-* ``"simt"`` (``csrc/flash_attention_bwd.cu``) for fp32 and every other
-  head dim of :data:`HEAD_DIMS`, in fp32 throughout
-  (``operands="fp32"``, the default).
+* ``"tc"`` (``csrc/flash_attention_bwd_tc.cu``) for bf16 at dh 64, 80
+  and 128 (:data:`TC_BWD_HEAD_DIMS`): wgmma and TMA, three passes.  It
+  rounds p and ds to bf16 before the products that take them
+  (``flash_attention_bwd_plain(..., operands="bf16")`` spells this);
+  :func:`tc_bwd_q_tiles`, :func:`tc_bwd_tile_masked` and
+  :func:`tc_kv_tiles` mirror its tile rules.  So zamba2-2.7b's and
+  hubert's attention (bf16, dh 80) train through it while their forward
+  stays on the SIMT kernel: their gradients are held to 2e-2 of the
+  plain path's, a bar the bf16 operands keep.
+* ``"simt"`` (``csrc/flash_attention_bwd.cu``) for fp32 and bf16 at dh
+  16, 32 and 256, in fp32 throughout (``operands="fp32"``, the default);
+  ``variant="simt"`` forces it at the other head dims.
 
 Every backward launch counts under ``LAUNCHES["flash_attention_bwd"]``,
 the tensor-core one's also under ``LAUNCHES["flash_attention_bwd_tc"]``.
@@ -97,7 +101,7 @@ KERNEL_VARIANTS = {
        for dh in HEAD_DIMS},
 }
 #: The tensor-core backward's head dims (bf16 only).
-TC_BWD_HEAD_DIMS = (64, 128)
+TC_BWD_HEAD_DIMS = (64, 80, 128)
 #: The backward kernel each (dtype, dh) launches by default: the
 #: tensor-core kernel for bf16 at its head dims, the SIMT kernel for the
 #: rest (fp32 stays in fp32).

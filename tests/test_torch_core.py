@@ -3,9 +3,10 @@
 Same seed, same graphs and LUTs; the geometry builders give equal
 arrays; the ILP gives the same assignments; ``convert.from_reference``
 carries objects across faithfully.  Also: no module of ``repro_torch``,
-and not ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py`` or
-``rmsnorm_probe.py``, imports ``jax`` or anything of ``repro``; ``chip_smoke.py`` fails without
-a GPU and outside the repository, the probes without a GPU.
+and not ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py``,
+``rmsnorm_probe.py`` or ``profiler_probe.py``, imports ``jax`` or
+anything of ``repro``; ``chip_smoke.py`` fails without a GPU and outside
+the repository, the probes without a GPU.
 """
 
 import os
@@ -226,6 +227,7 @@ import chip_smoke
 import flash_probe
 import ssm_probe
 import rmsnorm_probe
+import profiler_probe
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -237,9 +239,9 @@ def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
     (the LM path's, the sweep front end's and the differentiable
     layer's among them),
-    ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py`` and
-    ``rmsnorm_probe.py`` loads no
-    ``jax`` and no ``repro``."""
+    ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py``,
+    ``rmsnorm_probe.py`` and ``profiler_probe.py`` loads no ``jax`` and no
+    ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],
@@ -272,6 +274,43 @@ def test_flash_probe_fails_without_gpu():
     proc = _run_smoke(ROOT, ROOT / "flash_probe.py")
     assert proc.returncode != 0
     assert '"probe"' not in proc.stdout
+
+
+def test_profiler_probe_fails_without_gpu(tmp_path):
+    """No CUDA device: a nonzero exit, no measurement line, no file."""
+    out = tmp_path / "probe.jsonl"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "profiler_probe.py"), "--out", str(out)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode != 0
+    assert '"probe"' not in proc.stdout
+    assert not out.exists()
+
+
+def test_profiler_sessions_hold_and_count(monkeypatch):
+    """``chip_smoke.profiler_session`` keeps the host idle at both ends of
+    a session (its first launch then lies well inside it), and
+    ``device_ms``'s floor of records a session must hold is the port's
+    launches times ``KERNELS_PER_LAUNCH`` (the tensor-core counters are
+    sub-counts, not added twice)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    assert chip_smoke.PROFILE_HOLD_S >= 0.02
+    assert "flash_attention_tc" not in chip_smoke.KERNELS_PER_LAUNCH
+    assert "flash_attention_bwd_tc" not in chip_smoke.KERNELS_PER_LAUNCH
+    before = chip_smoke._kernels_launched()
+    monkeypatch.setitem(fa.LAUNCHES, "flash_attention_bwd",
+                        fa.LAUNCHES["flash_attention_bwd"] + 2)
+    monkeypatch.setitem(fa.LAUNCHES, "flash_attention_bwd_tc",
+                        fa.LAUNCHES["flash_attention_bwd_tc"] + 2)
+    monkeypatch.setitem(rn.LAUNCHES, "rmsnorm_bwd",
+                        rn.LAUNCHES["rmsnorm_bwd"] + 1)
+    assert chip_smoke._kernels_launched() - before == 2 * 3 + 2
 
 
 _SSM_PROBE_VARIANTS = ("butterfly", "steps16", "steps64", "warps2", "warps8",

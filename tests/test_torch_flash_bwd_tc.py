@@ -5,8 +5,8 @@ the CPU (the kernel itself runs only on the card:
 * ``flash_attention_bwd_plain(..., operands="bf16")`` (p rounded to bf16
   before dv's product, ds before dk's and dq's: the kernel's rounding)
   against ``jax.vjp`` of ``repro.models.attention.blocked_attend``: bf16
-  at dh 64 and 128 (the kernel's head dims) and 80 (the hybrid family's,
-  which the SIMT kernel trains for now), GQA groups 1 and 4,
+  at dh 64, 80 and 128 (the kernel's head dims; 80 is the hybrid and
+  encoder families'), GQA groups 1 and 4,
   causal, full and windowed, S=192 (a 64-row last tile of the kernel's
   128-row blocks).  Normwise 2e-2, as the fp32-operand twin is held in
   ``tests/test_torch_kernel_grads.py``:
@@ -22,7 +22,13 @@ the CPU (the kernel itself runs only on the card:
   exactly the tiles holding a kept pair, and leaves unmasked exactly the
   tiles whose every pair is kept.
 * ``BWD_KERNEL_VARIANTS`` and the errors of ``variant=``.
+* The card's gradient bar forecast: a small hybrid model whose shared
+  attention block runs at dh 80 (zamba2's head dim) gives step-0
+  gradients with the bf16-operand twin (the tensor-core kernel's
+  arithmetic) within 2e-2 normwise of those with the fp32 twin.
 """
+
+import dataclasses
 
 import itertools
 
@@ -35,7 +41,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import attention as ref_attention  # noqa: E402
 
+from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import loss_fn  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
 
 BF16_NORMWISE = 2e-2
 TWIN_NORMWISE = 1e-2
@@ -183,17 +192,22 @@ def test_dq_kv_tiles_match_brute_force(sq, sk, causal):
 
 
 def test_bwd_kernel_variants_table():
-    """bf16 at dh 64 and 128 goes to the tensor-core backward; fp32 and
-    every other head dim to the SIMT one."""
-    assert fa.TC_BWD_HEAD_DIMS == (64, 128)
+    """bf16 at dh 64, 80 and 128 goes to the tensor-core backward; fp32
+    and every other head dim to the SIMT one.  The forward keeps bf16 at
+    dh 80 on the SIMT kernel (zamba2's logits stay bit-equal to plain)."""
+    assert fa.TC_BWD_HEAD_DIMS == (64, 80, 128)
     assert set(fa.BWD_KERNEL_VARIANTS) == {
         (dt, dh) for dt in (torch.float32, torch.bfloat16)
         for dh in fa.HEAD_DIMS}
     for (dtype, dh), variant in fa.BWD_KERNEL_VARIANTS.items():
-        want = "tc" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
+        want = ("tc" if dtype == torch.bfloat16 and dh in (64, 80, 128)
+                else "simt")
         assert variant == want, (dtype, dh)
         assert fa.bwd_kernel_variant(dtype, dh) == want
         assert fa.bwd_kernel_variant(dtype, dh, "simt") == "simt"
+    assert fa.BWD_KERNEL_VARIANTS[(torch.bfloat16, 80)] == "tc"
+    assert fa.KERNEL_VARIANTS[(torch.bfloat16, 80)] == "simt"
+    assert fa.bwd_kernel_variant(torch.bfloat16, 80, "tc") == "tc"
     assert "flash_attention_bwd_tc" in fa.LAUNCHES
 
 
@@ -201,7 +215,7 @@ def test_bwd_kernel_variants_table():
     (torch.float32, 128, "tc", "tensor-core"),
     (torch.bfloat16, 256, "tc", "tensor-core"),
     (torch.bfloat16, 32, "tc", "tensor-core"),
-    (torch.bfloat16, 80, "tc", "tensor-core"),
+    (torch.float32, 80, "tc", "tensor-core"),
     (torch.bfloat16, 128, "wgmma", "unknown"),
     (torch.bfloat16, 48, None, "dh in"),
     (torch.float16, 64, None, "float32 or"),
@@ -219,3 +233,43 @@ def test_bwd_cuda_wrapper_rejects_cpu_tensors_and_bad_variants():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd_cuda(q, k, v, q, do, variant="tc")
     assert dict(fa.LAUNCHES) == before
+
+
+def test_hybrid_dh80_grads_with_bf16_twin_within_the_card_bar():
+    """The hybrid smoke model (4 Mamba2 layers, the shared attention block
+    twice) with its attention at dh 80, bf16, S=2048 (the flash path),
+    remat on: one loss and backward with the backward's plain twin at
+    ``operands="bf16"`` (what the tensor-core kernel computes) and one at
+    ``"fp32"`` (the SIMT kernel's).  The forward is the same, so the
+    losses are equal; every gradient stays within the card's 2e-2
+    normwise bar (``chip_smoke.py``'s step 0 of zamba2, MODEL_REL_TOL)."""
+    cfg = dataclasses.replace(get_smoke("zamba2-2.7b"), head_dim=80,
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              remat=True)
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    model.requires_grad_(True)
+    gen = torch.Generator().manual_seed(1)
+    batch = {key: torch.randint(0, cfg.vocab, (1, 2048), generator=gen)
+             for key in ("tokens", "labels")}
+    plain, runs, seen = fa.flash_attention_bwd_plain, {}, []
+    for operands in ("fp32", "bf16"):
+        def twin(*args, operands=operands, **kwargs):
+            seen.append(operands)
+            return plain(*args, **kwargs, operands=operands)
+
+        fa.flash_attention_bwd_plain = twin
+        try:
+            loss, _ = loss_fn(cfg, model, batch)
+            loss.backward()
+        finally:
+            fa.flash_attention_bwd_plain = plain
+        runs[operands] = (float(loss.detach()),
+                          {n: p.grad.clone()
+                           for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    assert seen == ["fp32"] * 2 + ["bf16"] * 2     # the block's two uses
+    assert runs["bf16"][0] == runs["fp32"][0]
+    for name, g in runs["bf16"][1].items():
+        w = runs["fp32"][1][name].double()
+        assert float((g.double() - w).norm()) <= 2e-2 * float(w.norm()), \
+            name

@@ -933,6 +933,16 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, offset, dtype,
     (1, 4, 4, 1024, 128, True, 256, torch.bfloat16, None),
     # the SIMT kernel forced at a shape the table sends to the tensor cores
     (1, 4, 1, 320, 128, True, 0, torch.bfloat16, "simt"),
+    # the tensor-core kernel at dh 80 (zamba2's and hubert's head dim):
+    # zamba2's layout (H = Hkv, causal), hubert's (H = Hkv = 16, full), a
+    # window, a GQA group of 4, 64-row last tiles; the SIMT kernel forced
+    (1, 8, 8, 1024, 80, True, 0, torch.bfloat16, None),
+    (1, 16, 16, 512, 80, False, 0, torch.bfloat16, None),
+    (1, 4, 2, 1024, 80, True, 200, torch.bfloat16, None),
+    (1, 8, 2, 512, 80, True, 0, torch.bfloat16, None),
+    (2, 4, 1, 320, 80, True, 96, torch.bfloat16, None),
+    (1, 4, 1, 448, 80, False, 130, torch.bfloat16, None),
+    (1, 4, 4, 320, 80, True, 0, torch.bfloat16, "simt"),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
                                         causal, window, dtype, variant):
@@ -977,10 +987,10 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
 #: bf16 random weights, a rounding flips near-tied expert choices and the
 #: whole-model gradients then differ past the bar for that alone (the
 #: serve and prefill phases meet the same with the routing handed over);
-#: in fp32 the kernels equal the plain path bit for bit.  hubert (dh 80,
-#: non-causal) takes the SIMT flash backward, llama and chameleon (bf16 dh
-#: 64) the tensor-core one, zamba2 the SIMT one at its smoke dh 16 and
-#: ssm_scan's backward.
+#: in fp32 the kernels equal the plain path bit for bit.  hubert (bf16 dh
+#: 80, non-causal), llama and chameleon (bf16 dh 64) take the tensor-core
+#: flash backward (hubert's forward the SIMT kernel), zamba2 the SIMT one
+#: at its smoke dh 16 and ssm_scan's backward.
 TRAIN_FAMILIES = {"dense": ("llama3-8b", "bfloat16", 64),
                   "moe": ("moonshot-v1-16b-a3b", "float32", None),
                   "hybrid": ("zamba2-2.7b", "bfloat16", None),
@@ -1026,9 +1036,26 @@ def test_train_grads_on_card_match_plain(cuda_device, family):
     remat on: every kernel launched as the model module's training
     formula says (forward, recompute, backward), and the loss and every
     gradient within 2e-2 normwise of the plain path's."""
+    _train_grads_match_plain(cuda_device, family, *TRAIN_FAMILIES[family])
+
+
+def test_hybrid_at_dh80_trains_through_the_tc_backward(cuda_device):
+    """The hybrid smoke model with its shared attention block at zamba2's
+    head dim (bf16 dh 80): the flash forward on the SIMT kernel, its
+    backward on the tensor-core kernel (the launch formula's counts), the
+    loss and every gradient within 2e-2 normwise of the plain path's."""
+    from repro_torch.models.model import superblock_shape
+
+    cfg = _train_grads_match_plain(cuda_device, "hybrid", "zamba2-2.7b",
+                                   "bfloat16", 80)
+    assert fa.kernel_variant(torch.bfloat16, cfg.dh) == "simt"
+    assert _train_launches(cfg)["flash_attention_bwd_tc"] == \
+        superblock_shape(cfg)[0] > 0
+
+
+def _train_grads_match_plain(cuda_device, family, arch, dtype, head_dim):
     from repro_torch.models import loss_fn
 
-    arch, dtype, head_dim = TRAIN_FAMILIES[family]
     cfg = replace(get_smoke(arch), dtype=dtype, param_dtype=dtype,
                   remat=True, **({"head_dim": head_dim} if head_dim else {}))
     assert cfg.family == family
@@ -1060,6 +1087,7 @@ def test_train_grads_on_card_match_plain(cuda_device, family):
     for name, g in runs[None][1].items():
         w = runs["plain"][1][name].double()
         assert float((g.double() - w).norm()) <= 2e-2 * float(w.norm()), name
+    return cfg
 
 
 def test_ssm_scan_grads_on_card_match_twin(cuda_device):
