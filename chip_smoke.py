@@ -66,17 +66,19 @@ port's two paths:
 * the training path at full width, llama3-8b with its depth cut to 2 of
   32 layers (S=4096, batch 1, fp32 AdamW state, remat): the backward
   kernels (``rmsnorm_bwd``; ``flash_attention_bwd``'s tensor-core kernel,
-  on the trainer's path, and its SIMT kernel; ``ssm_scan_bwd``) against
-  their plain twins, step 0's loss and gradients against
+  on the trainer's path, and its SIMT kernel; ``ssm_scan_bwd``'s
+  tensor-core kernel, the chunked SSD backward, and its scan kernel)
+  against their plain twins, step 0's loss and gradients against
   ``impl="plain"``, 4 steps of ``PowerAwareTrainer``
   (``build_trainer(..., device="cuda")``) with exact launch counts, a
   checkpoint restored bit for bit by a fresh trainer, the train CLI's
   failure recovery in its own process (S=64) and 2 CLI steps at S=2048
   in another (the fp32 smoke config: the SIMT backward's path, its
-  launch counts printed by the CLI); then the hybrid family the same
-  way, zamba2-2.7b with its depth cut to 12 of 54 layers (3 steps;
-  ``ssm_scan`` and its backward kernel, the SIMT flash forward and the
-  tensor-core flash backward at dh 80).
+  launch counts printed by the CLI) and 2 CLI steps of zamba2's fp32
+  smoke config in a third (the scan backward's path); then the hybrid
+  family the same way, zamba2-2.7b with its depth cut to 12 of 54 layers
+  (3 steps; ``ssm_scan`` and its tensor-core backward kernel, the SIMT
+  flash forward and the tensor-core flash backward at dh 80).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after.  One JSON line per phase, with the ``seconds`` since its
@@ -274,11 +276,13 @@ def call_ms(torch, fn, reps):
 #: Device kernels one launch of each wrapper runs (its ``LAUNCHES`` key):
 #: what a profiler session must hold at least, besides the other calls'.
 #: ``flash_attention_tc`` and ``flash_attention_bwd_tc`` are counted
-#: under ``flash_attention`` and ``flash_attention_bwd`` too, so not here.
+#: under ``flash_attention`` and ``flash_attention_bwd`` too, so not here;
+#: ``ssm_scan_bwd_tc`` is counted under ``ssm_scan_bwd`` too (whose two
+#: kernels the scan variant runs), and runs one kernel more (three).
 KERNELS_PER_LAUNCH = {"wave_run": 1, "power_step": 1, "waterfill": 1,
                       "rmsnorm": 1, "rmsnorm_bwd": 2, "flash_attention": 1,
                       "flash_attention_bwd": 3, "ssm_scan": 1,
-                      "ssm_scan_bwd": 2}
+                      "ssm_scan_bwd": 2, "ssm_scan_bwd_tc": 1}
 #: Every ``device_ms`` session of this process: reps, the kernel records
 #: it kept, the fewest it must hold, whether it fell short, its device ms
 #: a call and where its records lay (``_record_span``).
@@ -2212,7 +2216,11 @@ DIFF_LADDER = (0.5, 0.2, 0.1, 0.05, 0.02)
 #: ``benchmarks/diff_opt.py`` without ``--quick``: Listing 2 at three
 #: bounds, 300 Adam steps, a gap to the ILP of at most +2%.
 DIFF_BOUNDS = (7.0, 9.0, 12.0)
-DIFF_OPT_STEPS = 300
+#: Adam steps of each gradient-descended bound (300 until PR 30, cut to
+#: 150 for the card script's wall: at 150 the gaps to the ILP are -4.8%,
+#: -0.4% and -0.02% on the CPU at float32, under the +2% bar)
+DIFF_OPT_STEPS = 150
+DIFF_OPT_STEPS_FULL = 300
 DIFF_ILP_GAP_MAX = 0.02
 #: The trainer on all 20 scenarios of ``training_scenarios(0)``, cut in
 #: depth to 3 steps, one a rung of its temperature ladder (the bundled
@@ -2325,9 +2333,10 @@ def _diff_checks(torch, device, name, graph, specs, knots=None):
 
 
 def _diff_optimize(torch, device, bound):
-    """Listing 2 at ``bound``: the ILP's smooth-LUT makespan, 300 Adam
-    steps on the card at float32, the result's exact and stepped
-    makespans, and the device launches of one forward+backward."""
+    """Listing 2 at ``bound``: the ILP's smooth-LUT makespan,
+    :data:`DIFF_OPT_STEPS` Adam steps on the card at float32, the
+    result's exact and stepped makespans, and the device launches of one
+    forward+backward."""
     import numpy as np
 
     from repro_torch.core import homogeneous_cluster, listing2_graph
@@ -2371,7 +2380,9 @@ def _diff_optimize(torch, device, bound):
                 grad_makespan=opt.exact_makespan,
                 grad_makespan_stepped=stepped, gap=gap,
                 soft_makespan=opt.soft_makespan, caps=opt.caps.tolist(),
-                steps=DIFF_OPT_STEPS, wall_s=wall,
+                steps=DIFF_OPT_STEPS,
+                reduced={"steps": [DIFF_OPT_STEPS_FULL, DIFF_OPT_STEPS]},
+                wall_s=wall,
                 ms_per_step=1e3 * wall / DIFF_OPT_STEPS,
                 launches_per_step=prof["device_launches"],
                 step_wall_ms=1e3 * prof["wall_s"],
@@ -3003,6 +3014,7 @@ def expected_launches(cfg) -> dict:
     want["flash_attention_tc"] = want["flash_attention"] if tc else 0
     want["rmsnorm_bwd"] = want["flash_attention_bwd"] = 0
     want["flash_attention_bwd_tc"] = want["ssm_scan_bwd"] = 0
+    want["ssm_scan_bwd_tc"] = 0
     return want
 
 
@@ -3036,9 +3048,13 @@ def expected_train_launches(cfg) -> dict:
     Every flash launch (and every flash backward) is on the tensor-core
     kernel where ``kernel_variant`` (``bwd_kernel_variant``) routes the
     model's (dtype, dh) there: the forward at bf16 dh 64 and 128 (not
-    zamba2's dh 80), the backward at bf16 dh 64, 80 and 128."""
+    zamba2's dh 80), the backward at bf16 dh 64, 80 and 128.  Every
+    ssm_scan backward is on the tensor-core kernel where
+    ``ssm_scan.bwd_kernel_variant`` routes the model's (dtype, P, N):
+    zamba2's bf16 (64, 64)."""
     import torch
 
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels.flash_attention import (bwd_kernel_variant,
                                                      kernel_variant)
     from repro_torch.models.model import superblock_shape
@@ -3068,6 +3084,9 @@ def expected_train_launches(cfg) -> dict:
     want["flash_attention_tc"] = want["flash_attention"] if tc else 0
     want["flash_attention_bwd_tc"] = \
         want["flash_attention_bwd"] if tc_bwd else 0
+    want["ssm_scan_bwd_tc"] = want["ssm_scan_bwd"] if (
+        cfg.family == "hybrid" and ss.bwd_kernel_variant(
+            dtype, cfg.ssm.head_dim, cfg.ssm.state_dim) == "tc") else 0
     return want
 
 
@@ -3079,6 +3098,7 @@ def _launches():
     return {"rmsnorm": rn.LAUNCHES["rmsnorm"],
             "ssm_scan": ss.LAUNCHES["ssm_scan"],
             "ssm_scan_bwd": ss.LAUNCHES["ssm_scan_bwd"],
+            "ssm_scan_bwd_tc": ss.LAUNCHES["ssm_scan_bwd_tc"],
             "flash_attention": fa.LAUNCHES["flash_attention"],
             "flash_attention_tc": fa.LAUNCHES["flash_attention_tc"],
             "rmsnorm_bwd": rn.LAUNCHES["rmsnorm_bwd"],
@@ -3092,6 +3112,8 @@ TRAIN_GROUPS = (("flash_attention_bwd_tc", ("bwd_tc_stats", "bwd_tc_dkdv",
                                             "bwd_tc_dq")),
                 ("flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_stats")),
                 ("flash_attention", ("flash_tc_kernel", "flash_kernel")),
+                ("ssm_scan_bwd_tc", ("ssm_tc_states", "ssm_tc_chunk",
+                                     "ssm_tc_sum")),
                 ("ssm_scan_bwd", ("ssm_bwd_rows", "ssm_bwd_sum")),
                 ("ssm_scan", ("ssm_scan_kernel",)),
                 ("rmsnorm_bwd", ("rmsnorm_bwd",)),
@@ -3456,16 +3478,22 @@ TRAIN_HOSTS = 8
 #: training is the SIMT backward's path.  The recovery run keeps S=64,
 #: the dense attention under autograd.
 TRAIN_CLI_SEQ = 2048
+#: The third train CLI run's sequence: zamba2's smoke config in fp32
+#: (P = N = 16), the scan backward kernel's path since the bf16 one runs
+#: on the tensor cores.
+TRAIN_CLI_HYBRID_SEQ = 256
 #: zamba2-2.7b's training phase: FULL widths, depth cut to ZAMBA_TRAIN_LAYERS
 #: of 54 (two super-blocks: the shared attention block's gradient sums two
 #: uses), S=4096, batch 1, fp32 AdamW state, ZAMBA_TRAIN_STEPS trainer steps.
 ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS = 12, 3
-#: ssm_scan_bwd's cases besides the training shape (SSM_MAIN, bf16): (shape
-#: (B, H, S, P, N), dtype, a = 0).  fp32 at the training shape; N off the
-#: 32 lanes (16, 40) and the widest (256); P off the 16-row blocks; B 2; S
-#: of one segment and of one step; a = 0 (held bit for bit) at the training
-#: shape and a ragged one.
-SSM_BWD_CASES = ((SSM_MAIN, "float32", False),
+#: The scan backward kernel's cases (``variant="scan"``, forced where the
+#: table routes bf16 to the tensor cores): (shape (B, H, S, P, N), dtype,
+#: a = 0).  bf16 and fp32 at the training shape; N off the 32 lanes (16,
+#: 40) and the widest (256); P off the 16-row blocks; B 2; S of one segment
+#: and of one step; a = 0 (held bit for bit) at the training shape and a
+#: ragged one.
+SSM_BWD_CASES = ((SSM_MAIN, "bfloat16", False),
+                 (SSM_MAIN, "float32", False),
                  ((1, 4, 256, 64, 16), "bfloat16", False),
                  ((1, 4, 200, 32, 40), "float32", False),
                  ((1, 2, 64, 24, 256), "bfloat16", False),
@@ -3475,6 +3503,23 @@ SSM_BWD_CASES = ((SSM_MAIN, "float32", False),
                  ((1, 3, 1, 17, 64), "float32", False),
                  (SSM_MAIN, "bfloat16", True),
                  ((1, 3, 100, 5, 40), "float32", True))
+#: The tensor-core backward's cases (the table's route, bf16): zamba2's
+#: training shape, a ragged last chunk, B 2 (ragged), the smoke config's
+#: (P, N) = (16, 16), P and N between, one step.
+SSM_BWD_TC_CASES = (SSM_MAIN, (1, 8, 1000, 64, 64), (2, 4, 300, 32, 64),
+                    (1, 8, 256, 16, 16), (1, 3, 200, 24, 40),
+                    (2, 3, 1, 16, 64))
+#: The tensor-core ssm_scan backward against its bf16-operand twin,
+#: besides SSM_TOL against the scan's twin: the largest 64-step tile's
+#: ||kernel - twin|| / ||twin|| (each head's dx, da and ddt; each batch's
+#: dB and dC).  Set from the sound runs' largest reading (dx at the
+#: training shape, where a tile's bf16 outputs round the other way in a
+#: few entries) and that of a planted fault (one chunk of one head without
+#: its lo products) (PERF.md).
+SSM_TC_TILE_NORMWISE = 1.5e-3
+#: Step axis of each gradient: dx, da, ddt (B, H, S, ...); dB, dC (B, S, N).
+SSM_STEP_AXES = (2, 2, 2, 1, 1)
+SSM_GRADS = ("dx", "da", "ddt", "dB", "dC")
 #: rmsnorm_bwd at the training shape: the norms' rows (B * S) of d_model.
 RMSNORM_BWD_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096)
 #: rmsnorm_bwd's other cases: (rows, d, dtype, layer_form, x offset).
@@ -3623,18 +3668,21 @@ def phase_rmsnorm_bwd_kernel(torch, device):
     return worst, times
 
 
-def _tile_normwise(torch, got, want, rows: int = 64) -> float:
-    """Largest normwise distance of ``got`` from ``want`` (both ``(B, H,
-    S, dh)``) over the tiles of ``rows`` rows of each batch and head:
-    ||got - want|| / ||want|| a tile, in float64."""
-    b, h, s, d = want.shape
-    worst = 0.0
-    for i in range(b * h):
-        g = got.reshape(b * h, s // rows, rows * d)[i].double()
-        w = want.reshape(b * h, s // rows, rows * d)[i].double()
-        ratio = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-300)
-        worst = max(worst, float(ratio.max()))
-    return worst
+def _step_tiles(torch, got, want, axis: int, steps: int = 64) -> float:
+    """Largest ||got - want|| / ||want|| over the tiles of ``steps`` steps
+    (along ``axis``; the last tile ragged) of each leading index, in
+    float64."""
+    lead = math.prod(want.shape[:axis])
+    s = want.shape[axis]
+    pad = -s % steps
+    tiles = []
+    for t in (got, want):
+        t = torch.nn.functional.pad(t.double().reshape(lead, s, -1),
+                                    (0, 0, 0, pad))
+        tiles.append(t.reshape(lead, (s + pad) // steps, -1))
+    g, w = tiles
+    return float(((g - w).norm(dim=-1)
+                  / w.norm(dim=-1).clamp_min(1e-300)).max())
 
 
 def _planted_tile_fault(torch, fa, q, k, v, o, do, dq, dk):
@@ -3778,10 +3826,10 @@ def phase_flash_bwd_kernel(torch, device):
                     f"err {errs[-1]:.3g}, vs the fp32 twin {errs32[-1]:.3g}, "
                     f"or not the same from run to run")
             if variant == "tc":
-                tile16.setdefault(name, {})[grad] = _tile_normwise(
-                    torch, a, want)
-                tile32.setdefault(name, {})[grad] = _tile_normwise(
-                    torch, twins["fp32"][i], want)
+                tile16.setdefault(name, {})[grad] = _step_tiles(
+                    torch, a, want, 2)
+                tile32.setdefault(name, {})[grad] = _step_tiles(
+                    torch, twins["fp32"][i], want, 2)
                 require(tile16[name][grad] <= TC_BWD_TILE_NORMWISE,
                         f"flash_bwd {name} d{grad}: a 64-row tile "
                         f"{tile16[name][grad]:.3g} normwise from the "
@@ -3795,7 +3843,7 @@ def phase_flash_bwd_kernel(torch, device):
         inputs, twins, got = kept[shape]
         faulty = _planted_tile_fault(torch, fa, *inputs, *got[:2])
         planted[f"planted_fault{tag}"] = {
-            g: {"tile": _tile_normwise(torch, a, twins["bf16"][i]),
+            g: {"tile": _step_tiles(torch, a, twins["bf16"][i], 2),
                 "tensor": _rel_err(torch, a, twins["bf16"][i])}
             for i, (g, a) in enumerate(zip("qk", faulty))}
     inputs = {shape: kept[shape][0] for shape in kept}
@@ -3901,14 +3949,26 @@ def _train_steps(torch, counters, tr, want_step, n_steps, n_params, what):
     set to 0 just before and each step's read around the trainer's own
     step function, held exactly against ``want_step``.  Returns (the
     launches, the line's fields: each step's ms, tokens/s and
-    model-FLOPs share, the launches, the peak memory)."""
+    model-FLOPs share, the launches, the peak memory).  A step's
+    ``host_ms`` is the host's time to issue it (until the step function
+    returns, before the loss is read back): near ``ms`` when the host sets
+    the step's pace, below it when the card does; ``device_span_ms`` the
+    card's time from the step's first launch to its last kernel's end
+    (CUDA events)."""
     import numpy as np
 
-    per_step, step_fn = [], tr.train_step
+    per_step, host_ms, spans, step_fn = [], [], [], tr.train_step
 
     def counted(*args):
         before = _launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
         out = step_fn(*args)
+        end.record()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        spans.append((start, end))
         per_step.append({k: v - before[k] for k, v in _launches().items()})
         return out
 
@@ -3932,11 +3992,12 @@ def _train_steps(torch, counters, tr, want_step, n_steps, n_params, what):
             f"{[r.loss for r in history]}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steps = [{"step": r.step, "loss": r.loss, "ms": 1e3 * r.wall_s,
+              "host_ms": host, "device_span_ms": a.elapsed_time(b),
               "tokens_per_s": tokens / r.wall_s,
               "model_flops_share": 6 * n_params * tokens
               / (r.wall_s * BF16_TENSOR_OPS_PER_S),
               "straggler": r.straggler, "max_cap_w": max(r.caps_w)}
-             for r in history]
+             for r, host, (a, b) in zip(history, host_ms, spans)]
     return launches, {"steps": steps, "launches": launches,
                       "launches_per_step": want_step,
                       "peak_memory_gb": peak_gb}
@@ -3996,8 +4057,11 @@ def phase_train_full_width(torch, device, counters, smi):
     twice in processes of its own on the card meanwhile: a failure
     injected at step 6 of 10 on 4 hosts of the smoke config at S=64 (it
     must recover on 3 hosts and reach step 9), and 2 steps at
-    :data:`TRAIN_CLI_SEQ`, whose flash backward must run the SIMT kernel.
-    Returns the trainer's launch counts and the second CLI run's."""
+    :data:`TRAIN_CLI_SEQ`, whose flash backward must run the SIMT kernel;
+    a third process trains zamba2's smoke config (fp32) 2 steps at
+    :data:`TRAIN_CLI_HYBRID_SEQ`, whose ssm_scan backward must run the
+    scan kernel.  Returns the trainer's launch counts, the second CLI
+    run's and the third's."""
     import gc
     import os
     import tempfile
@@ -4016,11 +4080,16 @@ def phase_train_full_width(torch, device, counters, smi):
                 "--steps", "2", "--hosts", "2", "--batch", "2", "--seq",
                 str(TRAIN_CLI_SEQ), "--ckpt-dir",
                 str(Path(tmp.name) / "cli_simt"), "--device", str(device)]
+    hybrid_cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                  "--arch", ZAMBA, "--steps", "2", "--hosts", "2", "--batch",
+                  "2", "--seq", str(TRAIN_CLI_HYBRID_SEQ), "--ckpt-dir",
+                  str(Path(tmp.name) / "cli_hybrid"), "--device",
+                  str(device)]
     t_cli = time.perf_counter()
-    cli, cli_simt = (subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-                     for cmd in (cli_cmd, simt_cmd))
+    cli, cli_simt, cli_hybrid = (
+        subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for cmd in (cli_cmd, simt_cmd, hybrid_cmd))
     try:
         def trainer():
             return build_trainer(
@@ -4046,6 +4115,17 @@ def phase_train_full_width(torch, device, counters, smi):
         cli_launches = json.loads(next(
             (ln for ln in simt_out.splitlines() if ln.startswith(tag)),
             tag + "{}")[len(tag):])
+        hybrid_out, _ = cli_hybrid.communicate(timeout=600)
+        hybrid_launches = json.loads(next(
+            (ln for ln in hybrid_out.splitlines() if ln.startswith(tag)),
+            tag + "{}")[len(tag):])
+        require(cli_hybrid.returncode == 0
+                and hybrid_launches.get("ssm_scan_bwd", 0) > 0
+                and hybrid_launches["ssm_scan_bwd_tc"] == 0,
+                f"train CLI, {ZAMBA} smoke config (fp32) at "
+                f"S={TRAIN_CLI_HYBRID_SEQ}: exit {cli_hybrid.returncode}, "
+                f"its ssm_scan backward must run the scan kernel\n"
+                f"{hybrid_out}")
         require(cli_simt.returncode == 0
                 and cli_launches.get("flash_attention_bwd", 0) > 0
                 and cli_launches["flash_attention_bwd_tc"] == 0,
@@ -4058,7 +4138,7 @@ def phase_train_full_width(torch, device, counters, smi):
         restored = _train_restore(torch, tr, trainer, TRAIN_STEPS, "train")
         prof = _train_profile(torch, tr, TRAIN_STEPS)
     finally:
-        for proc in (cli, cli_simt):
+        for proc in (cli, cli_simt, cli_hybrid):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -4073,13 +4153,15 @@ def phase_train_full_width(torch, device, counters, smi):
          power_aware_speedup=tr.speedup_summary()["speedup"], **restored,
          cli_wall_s=cli_wall, cli_simt_seq=TRAIN_CLI_SEQ,
          cli_simt_launches=cli_launches,
+         cli_hybrid_seq=TRAIN_CLI_HYBRID_SEQ,
+         cli_hybrid_launches=hybrid_launches,
          cli_recovery_line=next(ln for ln in out.splitlines()
                                 if "hosts left" in ln),
          profile_step=prof, phase_wall_s=time.perf_counter() - t_phase)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, cli_launches
+    return launches, cli_launches, hybrid_launches
 
 
 def _ssm_bwd_bytes_ops(shape, size: int):
@@ -4093,14 +4175,55 @@ def _ssm_bwd_bytes_ops(shape, size: int):
     return nbytes, 15 * b * h * s * p * n
 
 
+def _ssm_tc_bwd_bytes_ops(torch, shape, size: int, dy):
+    """Bytes (as :func:`_ssm_bwd_bytes_ops`) and the tensor-core
+    operations the chunked backward needs on this ``dy`` (the products
+    ``csrc/ssm_scan_bwd_tc.cu``'s header counts, 2 operations a
+    multiply-add; the kernel does more): 17 products of 64 x 64 x 64 a
+    (batch, head, chunk of 64 steps), 4 more where that chunk of ``dy`` is
+    not bf16-exact (its lo parts: the fp32 operand as two bf16 passes,
+    what one tf32 pass costs at half the bf16 rate), and one B C^T a
+    (batch, chunk)."""
+    b, h, s, p, n = shape
+    nbytes, _ = _ssm_bwd_bytes_ops(shape, size)
+    k = -(-s // 64)
+    lo = (dy != dy.to(torch.bfloat16).float()).any(-1).float()
+    lo = torch.nn.functional.pad(lo.reshape(b * h, s), (0, k * 64 - s))
+    lo_chunks = int(lo.reshape(b * h, k, 64).amax(-1).sum())
+    products = 17 * b * h * k + 4 * lo_chunks + b * k
+    return nbytes, products * 2 * 64 ** 3
+
+
+def _ssm_planted_fault(torch, ss, args, got):
+    """dx and dB as a kernel that skipped the lo products of one chunk of
+    one head would leave them: head 0's steps 320 .. 383 of dx, and the
+    same steps of dB, from the single-rounding twin (``operands=
+    "bf16_hi"``)."""
+    hi = ss.ssm_scan_bwd_chunked_plain(*args, operands="bf16_hi")
+    dx, db = got[0].clone(), got[3].clone()
+    dx[0, 0, 320:384] = hi[0][0, 0, 320:384]
+    db[0, 320:384] = hi[3][0, 320:384]
+    return dx, db
+
+
 def phase_ssm_scan_bwd_kernel(torch, device):
-    """ssm_scan_bwd kernel vs its plain twin at zamba2's training shape
-    (SSM_MAIN: (1, 80, 4096, 64), N=64, bf16) and :data:`SSM_BWD_CASES`,
-    under :data:`SSM_TOL`, bit for bit at a = 0 (exp(0) = 1 on both
-    sides, so any change of order shows), the same from run to run, one
-    launch counted a call.  Times at the training shape by CUDA events:
-    the kernel and the twin (a host loop).  No single PyTorch call
-    computes this backward, so there is no library time."""
+    """ssm_scan_bwd kernels vs their plain twins.  The tensor-core kernel
+    (the table's route for bf16 at zamba2's (P, N)) at
+    :data:`SSM_BWD_TC_CASES` (zamba2's training shape SSM_MAIN: (1, 80,
+    4096, 64), N=64, bf16, among them): against its bf16-operand twin
+    (``ssm_scan_bwd_chunked_plain``), every 64-step tile within
+    :data:`SSM_TC_TILE_NORMWISE`, and against the scan's twin
+    (``ssm_scan_bwd_plain``) under :data:`SSM_TOL`, and so at the
+    training shape with dy rounded to bf16 (as the model's path gives it);
+    a planted fault (one chunk's lo products skipped) must read above the
+    tile bar.  The scan kernel (forced) at :data:`SSM_BWD_CASES` under
+    :data:`SSM_TOL`, bit for bit at a = 0 (exp(0) = 1 on both sides, so
+    any change of order shows).  Every case the same from run to run,
+    each launch counted on the variant it ran.  Times at the training
+    shape by CUDA events: both kernels (the scan one forced at bf16; the
+    tensor-core one also with dy rounded to bf16), the twins (the scan's
+    a host loop).  No single PyTorch call computes this backward, so
+    there is no library time."""
     from repro_torch.kernels import ssm_scan as ss
 
     gen = torch.Generator(device=device)
@@ -4115,23 +4238,37 @@ def phase_ssm_scan_bwd_kernel(torch, device):
                 rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype),
                 rnd(b, h, s, p))
 
-    worst, bitwise, main = {}, {}, None
-    for shape, dtype, zero_a in ((SSM_MAIN, "bfloat16", False),) + \
-            SSM_BWD_CASES:
-        args = inputs(*shape, getattr(torch, dtype), zero_a)
+    worst, bitwise, tiles, variants, main = {}, {}, {}, {}, None
+    cases = [(shape, "bfloat16", False, None, False)
+             for shape in SSM_BWD_TC_CASES]
+    # dy rounded to bf16, as the model's path gives it (y reaches the
+    # loss through y.to(bf16)): no lo part
+    cases.append((SSM_MAIN, "bfloat16", False, None, True))
+    cases += [(shape, dtype, zero_a, "scan", False)
+              for shape, dtype, zero_a in SSM_BWD_CASES]
+    planted = None
+    for shape, dtype, zero_a, force, dy_bf16 in cases:
+        td = getattr(torch, dtype)
+        args = inputs(*shape, td, zero_a)
+        if dy_bf16:
+            args = args[:5] + (args[5].to(torch.bfloat16).float(),)
         chunk = SSM_CHUNK if shape[2] % SSM_CHUNK == 0 else shape[2]
-        before = ss.LAUNCHES["ssm_scan_bwd"]
-        got = ss.ssm_scan_bwd(*args, chunk=chunk)
-        again = ss.ssm_scan_bwd(*args, chunk=chunk)
+        variant = ss.bwd_kernel_variant(td, shape[3], shape[4], force)
+        before = (ss.LAUNCHES["ssm_scan_bwd"], ss.LAUNCHES["ssm_scan_bwd_tc"])
+        got = ss.ssm_scan_bwd(*args, chunk=chunk, variant=force)
+        again = ss.ssm_scan_bwd(*args, chunk=chunk, variant=force)
         torch.cuda.synchronize()
-        ran = ss.LAUNCHES["ssm_scan_bwd"] - before
+        ran = (ss.LAUNCHES["ssm_scan_bwd"] - before[0],
+               ss.LAUNCHES["ssm_scan_bwd_tc"] - before[1])
         want = ss.ssm_scan_bwd(*args, chunk=chunk, impl="plain")
-        name = "x".join(map(str, shape)) + f" {dtype}" + \
-            (" a=0" if zero_a else "")
+        twin = (ss.ssm_scan_bwd_chunked_plain(*args, operands="bf16")
+                if variant == "tc" else None)
+        name = "x".join(map(str, shape)) + f" {dtype} {variant}" + \
+            (" a=0" if zero_a else "") + (" dy=bf16" if dy_bf16 else "")
         tol = SSM_TOL[dtype]
         errs, same = [], []
-        for grad, g, w, r in zip(("dx", "da", "ddt", "dB", "dC"), got, want,
-                                 again):
+        for i, (grad, g, w, r) in enumerate(zip(SSM_GRADS, got, want,
+                                                again)):
             err = _max_abs(torch, g.view(-1, g.shape[-1]),
                            w.view(-1, w.shape[-1]))
             errs.append(err)
@@ -4141,32 +4278,85 @@ def phase_ssm_scan_bwd_kernel(torch, device):
                     and bool(((g.float() - w.float()).abs()
                               <= tol + tol * w.float().abs()).all())
                     and bool(torch.equal(g, r)) and (same[-1] or not zero_a),
-                    f"ssm_scan_bwd {name} {grad}: kernel vs twin max abs err "
-                    f"{err:.3g} (tol {tol}), not bit-equal at a = 0, or not "
-                    f"the same from run to run")
-        require(ran == 2, f"ssm_scan_bwd {name}: {ran} launches for 2 calls")
+                    f"ssm_scan_bwd {name} {grad}: kernel vs the scan's twin "
+                    f"max abs err {err:.3g} (tol {tol}), not bit-equal at "
+                    f"a = 0, or not the same from run to run")
+            if twin is not None:
+                tile = _step_tiles(torch, g, twin[i], SSM_STEP_AXES[i])
+                tiles.setdefault(name, {})[grad] = tile
+                require(tile <= SSM_TC_TILE_NORMWISE,
+                        f"ssm_scan_bwd {name} {grad}: a 64-step tile "
+                        f"{tile:.3g} normwise from the bf16-operand twin "
+                        f"(bar {SSM_TC_TILE_NORMWISE})")
+        require(ran == (2, 2 if variant == "tc" else 0),
+                f"ssm_scan_bwd {name}: launches {ran} for 2 calls")
         worst[name], bitwise[name] = max(errs), all(same)
-        if main is None:
+        variants[name] = variant
+        if shape == SSM_MAIN and variant == "tc" and main is None:
             main = args
-        del got, again, want
+            faulty = _ssm_planted_fault(torch, ss, args, got)
+            planted = {g: _step_tiles(torch, f, twin[i], SSM_STEP_AXES[i])
+                       for g, f, i in zip(("dx", "dB"), faulty, (0, 3))}
+            del faulty
+        del got, again, want, twin
+    require(min(planted.values()) > SSM_TC_TILE_NORMWISE,
+            f"ssm_scan_bwd: the planted fault reads {planted}, within the "
+            f"tile bar {SSM_TC_TILE_NORMWISE}")
     torch.cuda.synchronize()
-    calls = {"ms": lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK),
-             "plain_ms": lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK,
-                                                 impl="plain")}
-    times = {"ms": _event_times(torch, {"ms": calls["ms"]}, reps=10)["ms"],
-             "plain_ms": call_ms(torch, calls["plain_ms"], 2)}
+    model = main[:5] + (main[5].to(torch.bfloat16).float(),)
+    calls = {"tc_ms": lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK),
+             "tc_bf16_dy_ms": lambda: ss.ssm_scan_bwd(*model,
+                                                      chunk=SSM_CHUNK),
+             "scan_ms": lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK,
+                                                variant="scan"),
+             "chunked_plain_ms": lambda: ss.ssm_scan_bwd_chunked_plain(
+                 *main, operands="bf16")}
+    times = _event_times(torch, calls, reps=10)
+    times["plain_ms"] = call_ms(torch, lambda: ss.ssm_scan_bwd(
+        *main, chunk=SSM_CHUNK, impl="plain"), 2)
+    times["ms"] = times["tc_ms"]
     times["library_ms"] = None
-    times.update(bound(*_ssm_bwd_bytes_ops(SSM_MAIN, 2), FP32_OPS_PER_S))
-    times["bound_share"] = times["bound_ms"] / times["ms"]
+    times.update(bound(*_ssm_tc_bwd_bytes_ops(torch, SSM_MAIN, 2, main[5]),
+                       BF16_TENSOR_OPS_PER_S))
+    times["bound_share"] = times["bound_ms"] / times["tc_ms"]
+    on_model = bound(*_ssm_tc_bwd_bytes_ops(torch, SSM_MAIN, 2, model[5]),
+                     BF16_TENSOR_OPS_PER_S)
+    times.update({f"bf16_dy_{k}": v for k, v in on_model.items()})
+    times["bf16_dy_bound_share"] = on_model["bound_ms"] / \
+        times["tc_bf16_dy_ms"]
+    del model
+    scan = bound(*_ssm_bwd_bytes_ops(SSM_MAIN, 2), FP32_OPS_PER_S)
+    times.update({f"scan_{k}": v for k, v in scan.items()})
+    times["scan_bound_share"] = scan["bound_ms"] / times["scan_ms"]
     times["forward_ms"] = call_ms(torch, lambda: ss.ssm_scan(
         *main[:5], chunk=SSM_CHUNK), 10)
+    prof = _profile(torch, lambda: ss.ssm_scan_bwd(*main, chunk=SSM_CHUNK),
+                    top=4)
     emit("ssm_scan_bwd_kernel", tol=SSM_TOL, max_abs_err=worst,
-         bitwise_equal=bitwise, shape=list(SSM_MAIN), chunk=SSM_CHUNK,
+         bitwise_equal=bitwise, variants=variants,
+         tile_normwise_bar=SSM_TC_TILE_NORMWISE, tile_normwise=tiles,
+         planted_fault=planted, shape=list(SSM_MAIN), chunk=SSM_CHUNK,
          dtype="bfloat16", timing="CUDA events over back-to-back calls "
-         "after a warm-up (plain_ms: 2 calls of the twin's host loop; "
-         "forward_ms: the forward kernel on the same inputs)",
-         times=times)
-    return max(worst.values()), times
+         "after a warm-up, in turns (each call, then each again in reverse "
+         "order); plain_ms: 2 calls of the scan's twin's host loop; "
+         "forward_ms: the forward kernel on the same inputs",
+         twins="the tensor-core kernel against ssm_scan_bwd_chunked_plain("
+               "operands='bf16') (tile_normwise) and ssm_scan_bwd_plain "
+               "(max_abs_err, SSM_TOL); the scan kernel against "
+               "ssm_scan_bwd_plain; planted_fault: the tensor-core kernel's "
+               "dx and dB with one chunk of head 0 from the single-rounding "
+               "twin (operands='bf16_hi')",
+         bound_note="bound_ms: the chunked form's need on these inputs "
+                    "(bytes, or the products of 64^3 it needs at 989 "
+                    "TFLOP/s: 21 a head and chunk with fp32 dy, 17 with "
+                    "bf16-exact dy, one B C^T a chunk); bf16_dy_*: the "
+                    "same inputs with dy rounded to bf16, as on the "
+                    "model's path (tc_bf16_dy_ms); scan_bound_ms: the scan "
+                    "form's ~15 fp32 operations an entry and step at 67 "
+                    "TFLOP/s",
+         times=times, device_kernels_ms=prof["top_device_ms"])
+    return max(worst[n] for n in worst if variants[n] == "tc"), \
+        max(worst[n] for n in worst if variants[n] == "scan"), times
 
 
 def phase_train_full_width_zamba2(torch, device, counters, smi):
@@ -4183,8 +4373,9 @@ def phase_train_full_width_zamba2(torch, device, counters, smi):
     the plain path's backward twin walks the 4096-step scan in host loops
     under the Function, with no autograd graph of it); then
     :data:`ZAMBA_TRAIN_STEPS` trainer steps with exact launch counts a
-    step (``ssm_scan_bwd`` among them; at dh 80 every flash forward on
-    the SIMT kernel and every flash backward on the tensor-core one); the
+    step (every ``ssm_scan_bwd`` on the tensor-core kernel; at dh 80 every
+    flash forward on the SIMT kernel and every flash backward on the
+    tensor-core one); the
     checkpoint the last step saved restored bit-equal by a fresh trainer;
     one more step under the profiler.
     Returns the trainer's launch counts."""
@@ -4248,8 +4439,9 @@ def train_phases(torch, device, counters, smi):
     rn_err, rn_times = phase_rmsnorm_bwd_kernel(torch, device)
     tc_err, simt_err, fa_times, fa_zamba = phase_flash_bwd_kernel(torch,
                                                                   device)
-    ss_err, ss_times = phase_ssm_scan_bwd_kernel(torch, device)
-    launches, cli = phase_train_full_width(torch, device, counters, smi)
+    ss_tc_err, ss_err, ss_times = phase_ssm_scan_bwd_kernel(torch, device)
+    launches, cli, cli_hybrid = phase_train_full_width(torch, device,
+                                                       counters, smi)
     zamba2 = phase_train_full_width_zamba2(torch, device, counters, smi)
     why = ("the reference trains through plain jnp and XLA's autodiff "
            "(no custom_vjp); the port's forward is a ctypes kernel autograd "
@@ -4309,18 +4501,47 @@ def train_phases(torch, device, counters, smi):
          "bound_share_zamba2": fa_zamba["simt_bound_share"],
          **{f"{k}_zamba2": fa_zamba[k] for k in (
              "plain_ms", "bound_ms", "library_ms", "library_bwd_ms")}},
+        {"name": "ssm_scan_bwd_tc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd_tc.cu",
+         "replaces": None, "why": why,
+         "backward_of": "src/repro/models/ssm.py:69",
+         "launches": zamba2["ssm_scan_bwd_tc"],
+         "launches_note": "launches are the zamba2-2.7b trainer's "
+                          f"({ZAMBA_TRAIN_STEPS} steps at "
+                          f"{ZAMBA_TRAIN_LAYERS} layers): every ssm_scan "
+                          "backward of its bf16 path",
+         "max_abs_err": ss_tc_err, "shape": list(SSM_MAIN),
+         **{k: ss_times[k] for k in ("ms", "bound_ms", "bound_by",
+                                     "bound_share", "library_ms",
+                                     "forward_ms")},
+         "ms_bf16_dy": ss_times["tc_bf16_dy_ms"],
+         **{f"{k}_bf16_dy": ss_times[f"bf16_dy_{k}"] for k in (
+             "bound_ms", "bound_by", "bound_share")},
+         "bf16_dy_note": "*_bf16_dy: the same inputs with dy rounded to "
+                         "bf16, as the model's path gives it",
+         "plain_ms": ss_times["chunked_plain_ms"],
+         "plain_note": "plain_ms: ssm_scan_bwd_chunked_plain("
+                       "operands='bf16') on the card; scan_plain_ms the "
+                       "scan's twin's host loop"},
         {"name": "ssm_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
          "replaces": None, "why": why,
          "backward_of": "src/repro/models/ssm.py:69",
-         "launches": zamba2["ssm_scan_bwd"],
-         "launches_note": "launches are the zamba2-2.7b trainer's "
-                          f"({ZAMBA_TRAIN_STEPS} steps at "
-                          f"{ZAMBA_TRAIN_LAYERS} layers)",
+         "launches": cli_hybrid["ssm_scan_bwd"]
+         - cli_hybrid["ssm_scan_bwd_tc"],
+         "launches_note": "launches are the third train CLI run's (its "
+                          f"own process: {ZAMBA}'s smoke config in fp32, "
+                          f"S {TRAIN_CLI_HYBRID_SEQ}, 2 steps); "
+                          "launches_train_zamba2 the zamba2-2.7b "
+                          "trainer's (bf16 at (64, 64): all on the "
+                          "tensor-core kernel since PR 30)",
+         "launches_train_zamba2": zamba2["ssm_scan_bwd"]
+         - zamba2["ssm_scan_bwd_tc"],
          "max_abs_err": ss_err, "shape": list(SSM_MAIN),
-         **{k: ss_times[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "bound_share", "library_ms",
-                                     "forward_ms")}},
+         "ms": ss_times["scan_ms"], "plain_ms": ss_times["plain_ms"],
+         "bound_ms": ss_times["scan_bound_ms"],
+         "bound_by": ss_times["scan_bound_by"],
+         "bound_share": ss_times["scan_bound_share"], "library_ms": None},
     ]
 
 

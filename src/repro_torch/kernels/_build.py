@@ -29,7 +29,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("power_step.cu", "rmsnorm.cu", "flash_attention.cu",
             "flash_attention_tc.cu", "ssm_scan.cu", "rmsnorm_bwd.cu",
             "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
-            "ssm_scan_bwd.cu")
+            "ssm_scan_bwd.cu", "ssm_scan_bwd_tc.cu")
 #: Headers the sources include: part of the library's hash, not compiled
 #: on their own.
 _HEADERS = ("hopper_tc.cuh",)
@@ -97,6 +97,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_ssm_scan_bwd.restype = _I
     lib.repro_ssm_scan_bwd_workspace.argtypes = [_I] * 5
     lib.repro_ssm_scan_bwd_workspace.restype = _LL
+    lib.repro_ssm_scan_bwd_tc.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.repro_ssm_scan_bwd_tc.restype = _I
+    lib.repro_ssm_scan_bwd_tc_workspace.argtypes = [_I] * 5
+    lib.repro_ssm_scan_bwd_tc_workspace.restype = _LL
     lib.repro_rmsnorm_bwd.argtypes = [ctypes.c_char_p, _P]  # packed args
     lib.repro_rmsnorm_bwd.restype = _I
     lib.repro_flash_attention_bwd.argtypes = [_P] * 9 + [_I] * 6 + [_F] + \

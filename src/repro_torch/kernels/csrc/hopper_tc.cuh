@@ -1,6 +1,8 @@
-// Hopper (sm_90a) pieces shared by the tensor-core flash attention kernels
+// Hopper (sm_90a) pieces shared by the tensor-core kernels
 // (flash_attention_tc.cu, the forward; flash_attention_bwd_tc.cu, the
-// backward): mbarriers, TMA tile loads, wgmma issue / commit / wait, the
+// backward; ssm_scan_bwd_tc.cu, the chunked ssm_scan backward, which takes
+// the wgmma pieces and the swizzled layout): mbarriers, TMA tile loads,
+// wgmma issue / commit / wait, the
 // 128-byte-swizzle shared-memory descriptor, the bf16 wgmma shapes both
 // use, the kv-tile rules of a block of query rows, and the host-side
 // tensor-map encoding.

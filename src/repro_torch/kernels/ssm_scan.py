@@ -50,6 +50,24 @@ block's rows (adjacent first), then the blocks (and for dB and dC the
 heads, head by head, each head's blocks in order) added one after
 another from the first.  No atomics: the result is the same from run to
 run, and the twin equals the kernel bit for bit where ``exp`` agrees.
+
+Two kernels compute the backward on the card, picked by
+:data:`BWD_KERNEL_VARIANTS` (``variant=`` forces one):
+
+* ``"tc"`` (``csrc/ssm_scan_bwd_tc.cu``) for bf16 x, Bm and Cm at the
+  ``(P, N)`` the table lists (multiples of 8 up to 64: zamba2-2.7b's
+  (64, 64), the smoke config's (16, 16)): the chunked SSD backward in
+  chunks of :data:`TC_CHUNK` steps, its work 64 x 64 x 64 products on the
+  tensor cores.  Each fp32 operand of a product enters as a pair of bf16
+  values (hi and lo), so its twin is :func:`ssm_scan_bwd_chunked_plain` with
+  ``operands="bf16"``; it is held to ``ssm_scan_bwd_plain`` by tolerance,
+  not bit for bit.
+* ``"scan"`` (``csrc/ssm_scan_bwd.cu``) for fp32 and every other shape:
+  the walk above, bit-equal to :func:`ssm_scan_bwd_plain`.
+
+Every backward launch counts under ``LAUNCHES["ssm_scan_bwd"]``, the
+tensor-core one's also under ``LAUNCHES["ssm_scan_bwd_tc"]``.  A failed
+build or launch raises: no variant falls back to another.
 """
 
 from __future__ import annotations
@@ -77,9 +95,38 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: order after.
 BWD_ROWS = 16
 
+#: Steps of a chunk of the tensor-core backward (every product 64 x 64 x
+#: 64 at P = N = 64).
+TC_CHUNK = 64
+#: The backward kernel each ``(dtype, P, N)`` launches by default: the
+#: tensor-core kernel for bf16 at P and N multiples of 8 up to 64 (the
+#: (P, N) it takes: its tiles are 64 x 64, zero past P and N); every other
+#: key (fp32, other shapes) the scan kernel (:func:`bwd_kernel_variant`).
+BWD_KERNEL_VARIANTS = {(torch.bfloat16, p, n): "tc" for p in range(8, 65, 8)
+                       for n in range(8, 65, 8)}
+
 #: Kernel launches, counted where each launch happens (the backward once
-#: a call, whatever its internal launches).
-LAUNCHES: Counter = Counter(ssm_scan=0, ssm_scan_bwd=0)
+#: a call, whatever its internal launches): every backward under
+#: ``ssm_scan_bwd``, the tensor-core one's also under ``ssm_scan_bwd_tc``.
+LAUNCHES: Counter = Counter(ssm_scan=0, ssm_scan_bwd=0, ssm_scan_bwd_tc=0)
+
+
+def bwd_kernel_variant(dtype: torch.dtype, p: int, n: int,
+                       variant: Optional[str] = None) -> str:
+    """The backward kernel that runs ``(dtype, P, N)`` on the card: the
+    table's (:data:`BWD_KERNEL_VARIANTS`, ``"scan"`` for a key it lacks)
+    for ``variant=None``, else ``variant`` itself if that kernel takes
+    the key.  Raises for a key the kernel does not take."""
+    if variant is None:
+        return BWD_KERNEL_VARIANTS.get((dtype, p, n), "scan")
+    if variant not in ("tc", "scan"):
+        raise ValueError(f"unknown ssm_scan backward kernel variant "
+                         f"{variant!r}")
+    if variant == "tc" and (dtype, p, n) not in BWD_KERNEL_VARIANTS:
+        raise ValueError(f"the tensor-core ssm_scan backward takes bfloat16 "
+                         f"with P and N multiples of 8 up to 64, got {dtype} "
+                         f"P={p} N={n}")
+    return variant
 
 
 def _check(x, a, dt, Bm, Cm, chunk: int):
@@ -295,6 +342,163 @@ def ssm_scan_bwd_plain(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
             dc.transpose(0, 1).to(Cm.dtype).contiguous())
 
 
+def _split(v: torch.Tensor):
+    """An fp32 operand as the tensor-core kernel feeds it: ``hi =
+    bf16(v)`` and ``lo = bf16(v - hi)``, both as fp32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _mm(a, b, split_a: bool, split_b: bool, operands: str) -> torch.Tensor:
+    """``a @ b`` as the kernel forms it.  ``"bf16"``: an operand marked
+    split (fp32) enters as its hi and lo parts, the product ``hi.hi +
+    lo.hi + hi.lo`` (lo.lo dropped), the other operand as it is (bf16
+    values); ``"bf16_hi"``: as its hi part alone; ``"fp32"``: ``a @ b``."""
+    if operands == "fp32":
+        return a @ b
+    ah, al = _split(a) if split_a else (a, None)
+    bh, bl = _split(b) if split_b else (b, None)
+    out = ah @ bh
+    if operands == "bf16_hi":
+        return out
+    if al is not None:
+        out = out + al @ bh
+    if bl is not None:
+        out = out + ah @ bl
+    return out
+
+
+def ssm_scan_bwd_chunked_plain(x, a, dt, Bm, Cm, dy, *,
+                               operands: str = "fp32"):
+    """The backward as the chunked SSD form computes it, in plain tensor
+    ops: ``(dx, da, ddt, dB, dC)`` as :func:`ssm_scan_bwd_plain` gives
+    them, in chunks of :data:`TC_CHUNK` steps (a ragged last chunk padded
+    with zero steps, which add nothing).  ``csrc/ssm_scan_bwd_tc.cu``'s
+    header derives each term.  ``operands="bf16"`` makes every rounding
+    the tensor-core kernel makes: dy, the weighted B and C of the chunk
+    states, the masked Q x Q matrices and the states h_in and G_out enter
+    their products as bf16 hi and lo parts (:func:`_mm`); ``"fp32"``
+    computes in fp32 throughout; ``"bf16_hi"`` rounds each of those
+    operands once to bf16 (the kernel without its lo products: too coarse
+    for ``SSM_TOL``, the fault the card's tile bar must see)."""
+    if operands not in ("fp32", "bf16", "bf16_hi"):
+        raise ValueError(f"operands must be 'fp32', 'bf16' or 'bf16_hi', "
+                         f"got {operands!r}")
+    b, h, s, p, n = _check(x, a, dt, Bm, Cm, 1)    # any chunk: none used
+    if tuple(dy.shape) != (b, h, s, p):
+        raise ValueError(f"dy must be y's shape {(b, h, s, p)}, got "
+                         f"{tuple(dy.shape)}")
+    q = TC_CHUNK
+    k = -(-s // q)
+    pad = k * q - s
+    xs = F.pad(x.float(), (0, 0, 0, pad)).view(b, h, k, q, p)
+    dys = F.pad(dy.float(), (0, 0, 0, pad)).view(b, h, k, q, p)
+    cs = torch.cumsum(F.pad(a.float(), (0, pad)).view(b, h, k, q), -1)
+    dts = F.pad(dt.float(), (0, pad)).view(b, h, k, q)
+    bs = F.pad(Bm.float(), (0, 0, 0, pad)).view(b, 1, k, q, n)
+    cc = F.pad(Cm.float(), (0, 0, 0, pad)).view(b, 1, k, q, n)
+    cse = cs[..., -1:]
+    we = torch.exp(cse - cs)                        # exp(cs_e - cs_j)
+    ec = torch.exp(cs)                              # exp(cs_i)
+    ee = torch.exp(cse[..., 0])                     # exp(cs_e)
+    # the chunk states: h_in entering each chunk, G_out leaving it
+    s_k = _mm(xs.transpose(-1, -2), bs * (dts * we)[..., None], False,
+              True, operands)
+    t_k = _mm(dys.transpose(-1, -2), cc * ec[..., None], True, True, operands)
+    hin, gout = torch.empty_like(s_k), torch.empty_like(t_k)
+    state = torch.zeros_like(s_k[:, :, 0])
+    for i in range(k):
+        hin[:, :, i] = state
+        state = ee[:, :, i, None, None] * state + s_k[:, :, i]
+    state = torch.zeros_like(state)
+    for i in reversed(range(k)):
+        gout[:, :, i] = state
+        state = ee[:, :, i, None, None] * state + t_k[:, :, i]
+    idx = torch.arange(q, device=x.device)
+    lower = idx[:, None] >= idx[None, :]            # [i, j]: j <= i
+    lmat = torch.where(lower, torch.exp(cs[..., :, None] - cs[..., None, :]),
+                       torch.zeros((), device=x.device))
+    cb = cc @ bs.transpose(-1, -2)                  # (i, j): C_i . B_j
+    dxm = _mm(dys, xs.transpose(-1, -2), True, False, operands)  # dy_i . x_j
+    m1, m2 = cb * lmat, dxm * lmat
+    g_in = _mm(m1.transpose(-1, -2), dys, True, True, operands)
+    g_out = _mm(bs, gout.transpose(-1, -2), False, True, operands)
+    gb = g_in + we[..., None] * g_out
+    dx = dts[..., None] * gb
+    ddt = (xs * gb).sum(-1)
+    v = (xs * ((dts * we)[..., None] * g_out)).sum(-1)
+    db = dts[..., None] * (_mm(m2.transpose(-1, -2), cc, True, False, operands)
+                           + we[..., None] * _mm(xs, gout, False, True,
+                                                 operands))
+    c_out = ec[..., None] * _mm(dys, hin, True, True, operands)
+    dc = _mm(m2 * dts[..., None, :], bs, True, False, operands) + c_out
+    u = (cc * c_out).sum(-1)
+    # da: the pairs j < t <= i inside the chunk (D), with i in it and j
+    # earlier (the suffix of u), with j in it and i later (the prefix of
+    # v), with both outside (exp(cs_e) <G_out, h_in>)
+    strict = idx[:, None] > idx[None, :]            # [i, j]: j < i
+    w = cb * dxm * lmat * dts[..., None, :] * strict
+    dq = w.sum(-2) - w.sum(-1)   # sum_{i > j} W_ij less sum_{k < j} W_jk
+    d_t = torch.cumsum(dq, -1) - dq
+    v_t = torch.cumsum(v, -1) - v
+    u_t = u.flip(-1).cumsum(-1).flip(-1)
+    da = ((d_t + u_t) + v_t) + (ee * (gout * hin).sum((-1, -2)))[..., None]
+
+    def seq(t):      # (b, h, k, q, ...) -> (b, h, s, ...)
+        return t.reshape(b, h, k * q, *t.shape[4:])[:, :, :s]
+
+    return (seq(dx).to(x.dtype).contiguous(), seq(da).contiguous(),
+            seq(ddt).contiguous(),
+            seq(db).sum(1).to(Bm.dtype).contiguous(),
+            seq(dc).sum(1).to(Cm.dtype).contiguous())
+
+
+def _check_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk: int):
+    """Raise unless the backward kernels take these inputs (dy float32 of
+    y's shape, contiguous, on x's device); their (B, H, S, P, N)."""
+    b, h, s, p, n = _check(x, a, dt, Bm, Cm, chunk)
+    _check_cuda(x, a, dt, Bm, Cm, "ssm_scan_bwd")
+    if (tuple(dy.shape) != (b, h, s, p) or dy.dtype != torch.float32
+            or dy.device != x.device or not dy.is_contiguous()):
+        raise ValueError(f"the ssm_scan_bwd kernel takes dy float32 of "
+                         f"y's shape {(b, h, s, p)}, contiguous on "
+                         f"{x.device}, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    return b, h, s, p, n
+
+
+def ssm_scan_bwd_tc_cuda(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
+    """Launch the tensor-core backward (``csrc/ssm_scan_bwd_tc.cu``):
+    bf16 x, Bm and Cm at a ``(P, N)`` :data:`BWD_KERNEL_VARIANTS` routes
+    to it, the rest as :func:`ssm_scan_bwd_cuda` takes it; ``(dx, da, ddt,
+    dB, dC)`` as :func:`ssm_scan_bwd_chunked_plain` gives them (``chunk``
+    is only the reference's tile check).  Its scratch (the chunk states,
+    the head groups' dB and dC partials) is one fp32 tensor of the size
+    the library asks for."""
+    from repro_torch.kernels._build import check, load_library
+
+    b, h, s, p, n = _check_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk)
+    bwd_kernel_variant(x.dtype, p, n, "tc")
+    lib = load_library().lib
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    da = torch.empty((b, h, s), **f32)
+    ddt = torch.empty((b, h, s), **f32)
+    db, dc = torch.empty_like(Bm), torch.empty_like(Cm)
+    work = torch.empty((lib.repro_ssm_scan_bwd_tc_workspace(b, h, s, p, n),),
+                       **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.repro_ssm_scan_bwd_tc(
+            *(t.data_ptr() for t in (x, a, dt, Bm, Cm, dy, dx, da, ddt, db,
+                                     dc, work)),
+            b, h, s, p, n, stream)
+    check(code, "ssm_scan_bwd_tc")
+    LAUNCHES["ssm_scan_bwd"] += 1
+    LAUNCHES["ssm_scan_bwd_tc"] += 1
+    return dx, da, ddt, db, dc
+
+
 def ssm_scan_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
     """Launch the backward kernel (``csrc/ssm_scan_bwd.cu``): the
     forward's inputs as :func:`ssm_scan_cuda` takes them and dy fp32 of
@@ -304,14 +508,7 @@ def ssm_scan_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
     of the size the library asks for."""
     from repro_torch.kernels._build import check, load_library
 
-    b, h, s, p, n = _check(x, a, dt, Bm, Cm, chunk)
-    _check_cuda(x, a, dt, Bm, Cm, "ssm_scan_bwd")
-    if (tuple(dy.shape) != (b, h, s, p) or dy.dtype != torch.float32
-            or dy.device != x.device or not dy.is_contiguous()):
-        raise ValueError(f"the ssm_scan_bwd kernel takes dy float32 of "
-                         f"y's shape {(b, h, s, p)}, contiguous on "
-                         f"{x.device}, got {dy.dtype} "
-                         f"{tuple(dy.shape)} on {dy.device}")
+    b, h, s, p, n = _check_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk)
     lib = load_library().lib
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -332,11 +529,15 @@ def ssm_scan_bwd_cuda(x, a, dt, Bm, Cm, dy, chunk: int = DEFAULT_CHUNK):
 
 
 def ssm_scan_bwd(x, a, dt, Bm, Cm, dy, *, chunk: int = DEFAULT_CHUNK,
-                 impl: Optional[str] = None):
-    """Dispatch the backward: the kernel for CUDA tensors (it launches or
-    raises), the plain twin for CPU ones."""
+                 impl: Optional[str] = None, variant: Optional[str] = None):
+    """Dispatch the backward: for CUDA tensors the kernel
+    :func:`bwd_kernel_variant` names (it launches or raises), for CPU ones
+    the plain twin :func:`ssm_scan_bwd_plain`."""
     if resolve_impl(impl, x) == "plain":
         return ssm_scan_bwd_plain(x, a, dt, Bm, Cm, dy, chunk)
+    if bwd_kernel_variant(x.dtype, x.shape[-1], Bm.shape[-1],
+                          variant) == "tc":
+        return ssm_scan_bwd_tc_cuda(x, a, dt, Bm, Cm, dy.contiguous(), chunk)
     return ssm_scan_bwd_cuda(x, a, dt, Bm, Cm, dy.contiguous(), chunk)
 
 

@@ -4,7 +4,8 @@ Same seed, same graphs and LUTs; the geometry builders give equal
 arrays; the ILP gives the same assignments; ``convert.from_reference``
 carries objects across faithfully.  Also: no module of ``repro_torch``,
 and not ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py``,
-``rmsnorm_probe.py`` or ``profiler_probe.py``, imports ``jax`` or
+``ssm_bwd_probe.py``, ``rmsnorm_probe.py`` or ``profiler_probe.py``,
+imports ``jax`` or
 anything of ``repro``; ``chip_smoke.py`` fails without a GPU and outside
 the repository, the probes without a GPU.
 """
@@ -226,6 +227,7 @@ assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe
 import ssm_probe
+import ssm_bwd_probe
 import rmsnorm_probe
 import profiler_probe
 bad = sorted(k for k in sys.modules
@@ -240,8 +242,8 @@ def test_port_imports_neither_jax_nor_reference():
     (the LM path's, the sweep front end's and the differentiable
     layer's among them),
     ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py``,
-    ``rmsnorm_probe.py`` and ``profiler_probe.py`` loads no ``jax`` and no
-    ``repro``."""
+    ``ssm_bwd_probe.py``, ``rmsnorm_probe.py`` and ``profiler_probe.py``
+    loads no ``jax`` and no ``repro``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CHECK.format(root=str(ROOT))],
@@ -272,6 +274,13 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
 def test_flash_probe_fails_without_gpu():
     """No CUDA device: a nonzero exit and no measurement line."""
     proc = _run_smoke(ROOT, ROOT / "flash_probe.py")
+    assert proc.returncode != 0
+    assert '"probe"' not in proc.stdout
+
+
+def test_ssm_bwd_probe_fails_without_gpu():
+    """No CUDA device: a nonzero exit and no measurement line."""
+    proc = _run_smoke(ROOT, ROOT / "ssm_bwd_probe.py")
     assert proc.returncode != 0
     assert '"probe"' not in proc.stdout
 
@@ -311,6 +320,44 @@ def test_profiler_sessions_hold_and_count(monkeypatch):
     monkeypatch.setitem(rn.LAUNCHES, "rmsnorm_bwd",
                         rn.LAUNCHES["rmsnorm_bwd"] + 1)
     assert chip_smoke._kernels_launched() - before == 2 * 3 + 2
+
+
+def test_ssm_tc_backward_counts_three_kernels(monkeypatch):
+    """A tensor-core ssm_scan backward (counted under ``ssm_scan_bwd`` and
+    ``ssm_scan_bwd_tc``) is three device kernels in ``device_ms``'s floor,
+    a scan one (``ssm_scan_bwd`` alone) two."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import ssm_scan as ss
+
+    before = chip_smoke._kernels_launched()
+    for key, n in (("ssm_scan_bwd", 3), ("ssm_scan_bwd_tc", 1)):
+        monkeypatch.setitem(ss.LAUNCHES, key, ss.LAUNCHES[key] + n)
+    assert chip_smoke._kernels_launched() - before == 3 + 2 * 2
+
+
+@pytest.mark.parametrize("form,lo_chunks", [
+    (None, 6), ("mixed", 4), ("bf16", 0)])
+def test_ssm_tc_bound_counts_the_products_dy_needs(monkeypatch, form,
+                                                   lo_chunks):
+    """The tensor-core ssm_scan backward's bound counts 17 products of
+    64^3 a head and chunk, 4 more for a chunk whose dy has a lo part, and
+    one B C^T a chunk: here 2 heads, 3 chunks (the last ragged)."""
+    import torch
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    shape = (1, 2, 130, 64, 64)
+    dy = torch.randn(1, 2, 130, 64, generator=torch.Generator().manual_seed(3))
+    if form is not None:    # dy without a lo part: everywhere, or chunk 0
+        rounded = dy.bfloat16().float()
+        if form == "mixed":
+            rounded[:, :, 64:] = dy[:, :, 64:]
+        dy = rounded
+    nbytes, ops = chip_smoke._ssm_tc_bwd_bytes_ops(torch, shape, 2, dy)
+    assert nbytes == chip_smoke._ssm_bwd_bytes_ops(shape, 2)[0]
+    assert ops == (17 * 6 + 4 * lo_chunks + 3) * 2 * 64 ** 3
 
 
 _SSM_PROBE_VARIANTS = ("butterfly", "steps16", "steps64", "warps2", "warps8",

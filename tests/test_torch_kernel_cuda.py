@@ -2,8 +2,8 @@
 the card: ``power_step`` (with ``waterfill``, and the whole-row wave loop
 ``wave_run`` against the engine's plain and per-wave paths), ``rmsnorm``,
 ``flash_attention`` and ``ssm_scan``, the backward kernels
-(``rmsnorm_bwd``, ``flash_attention_bwd`` in both variants,
-``ssm_scan_bwd``) and one training loss and backward of each family's
+(``rmsnorm_bwd``, ``flash_attention_bwd`` and ``ssm_scan_bwd`` in both
+variants) and one training loss and backward of each family's
 smoke model on the card.  Every test
 here needs an NVIDIA
 GPU with ``nvcc`` and skips elsewhere; the file imports neither ``jax``
@@ -333,12 +333,19 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 TC_BWD_TILE_NORMWISE = 2e-3
 
 
-def _tile_normwise(got, want, rows=64):
-    """Largest ||got - want|| / ||want|| over the tiles of ``rows`` rows
-    of each batch and head of ``(B, H, S, dh)`` tensors, in float64."""
-    b, h, s, d = want.shape
-    g = got.double().reshape(b * h, s // rows, rows * d)
-    w = want.double().reshape(b * h, s // rows, rows * d)
+def _step_tiles(got, want, axis, steps=64):
+    """Largest ||got - want|| / ||want|| over the tiles of ``steps`` steps
+    (axis ``axis``; the last tile ragged) of each leading index, in
+    float64."""
+    lead = int(np.prod(want.shape[:axis]))
+    s = want.shape[axis]
+    pad = -s % steps
+    tiles = []
+    for t in (got, want):
+        t = t.double().reshape(lead, s, -1)
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+        tiles.append(t.reshape(lead, (s + pad) // steps, -1))
+    g, w = tiles
     return float(((g - w).norm(dim=-1)
                   / w.norm(dim=-1).clamp_min(1e-300)).max())
 
@@ -676,17 +683,19 @@ def _bwd_inputs(b, h, s, p, n, dtype, device, seed, zero_a=False):
 ])
 def test_ssm_scan_bwd_kernel_matches_plain(cuda_device, b, h, s, p, n, dtype,
                                            zero_a):
-    """The backward kernel against its twin (the same sums in the same
-    order): within SSM_TOL everywhere (only exp may differ), bit for bit
-    at a = 0; the same from run to run (no atomics); one launch counted a
-    call; dx, dB, dC in the input's type, da and ddt fp32."""
+    """The scan backward kernel (``variant="scan"``, forced where the table
+    routes bf16 to the tensor cores) against its twin (the same sums in
+    the same order): within SSM_TOL everywhere (only exp may differ), bit
+    for bit at a = 0; the same from run to run (no atomics); one launch
+    counted a call; dx, dB, dC in the input's type, da and ddt fp32."""
     args = _bwd_inputs(b, h, s, p, n, dtype, cuda_device, s + n + p, zero_a)
     chunk = 128 if s % 128 == 0 else s
-    before = ss.LAUNCHES["ssm_scan_bwd"]
-    got = ss.ssm_scan_bwd(*args, chunk=chunk)
-    again = ss.ssm_scan_bwd(*args, chunk=chunk)
+    before = (ss.LAUNCHES["ssm_scan_bwd"], ss.LAUNCHES["ssm_scan_bwd_tc"])
+    got = ss.ssm_scan_bwd(*args, chunk=chunk, variant="scan")
+    again = ss.ssm_scan_bwd(*args, chunk=chunk, variant="scan")
     torch.cuda.synchronize()
-    assert ss.LAUNCHES["ssm_scan_bwd"] == before + 2
+    assert (ss.LAUNCHES["ssm_scan_bwd"],
+            ss.LAUNCHES["ssm_scan_bwd_tc"]) == (before[0] + 2, before[1])
     want = ss.ssm_scan_bwd(*args, chunk=chunk, impl="plain")
     types = (dtype, torch.float32, torch.float32, dtype, dtype)
     for g, w, r, t in zip(got, want, again, types):
@@ -718,6 +727,94 @@ def test_ssm_scan_bwd_kernel_rejects_and_reports_a_failed_launch(
     with pytest.raises(RuntimeError,
                        match="ssm_scan_bwd kernel launch failed"):
         check(code, "ssm_scan_bwd")
+
+
+#: The tensor-core ssm_scan backward against its bf16-operand twin,
+#: besides SSM_TOL against the scan's twin: the largest 64-step tile's
+#: normwise distance (each head's dx, da and ddt, each batch's dB and
+#: dC), as chip_smoke.py holds it (PERF.md gives the readings it was set
+#: from).
+SSM_TC_TILE_NORMWISE = 1.5e-3
+
+
+#: Step axis of each gradient: dx, da, ddt (B, H, S, ...); dB, dC (B, S, N).
+SSM_STEP_AXES = (2, 2, 2, 1, 1)
+
+
+@pytest.mark.parametrize("b,h,s,p,n", [
+    (1, 80, 4096, 64, 64),    # zamba2's training shape
+    (1, 8, 1000, 64, 64),     # a ragged last chunk
+    (2, 4, 300, 32, 64),      # B = 2
+    (1, 8, 256, 16, 16),      # the smoke config's (P, N)
+    (1, 3, 200, 24, 40),
+    (1, 4, 64, 64, 64),       # one whole chunk
+    (2, 3, 1, 16, 64),        # one step
+])
+def test_ssm_scan_bwd_tc_kernel_matches_twins(cuda_device, b, h, s, p, n):
+    """The tensor-core backward (the table's route for bf16 at these (P,
+    N)) against its bf16-operand twin (every 64-step tile within
+    :data:`SSM_TC_TILE_NORMWISE`) and against the scan's twin
+    (``ssm_scan_bwd_plain``) within SSM_TOL; the same from run to run (no
+    atomics); each launch counted under both keys."""
+    _check_tc_against_twins(
+        _bwd_inputs(b, h, s, p, n, torch.bfloat16, cuda_device, s + n))
+
+
+def test_ssm_scan_bwd_tc_kernel_with_bf16_exact_dy(cuda_device):
+    """As :func:`test_ssm_scan_bwd_tc_kernel_matches_twins` at zamba2's
+    training shape with dy rounded to bf16, as the model's path gives it
+    (y reaches the loss through y.to(bf16)): dy's lo parts are zero."""
+    x, a, dt, bm, cm, dy = _bwd_inputs(1, 80, 4096, 64, 64, torch.bfloat16,
+                                       cuda_device, 4096)
+    _check_tc_against_twins((x, a, dt, bm, cm, dy.bfloat16().float()))
+
+
+def _check_tc_against_twins(args):
+    """The tensor-core backward on ``args`` (x, a, dt, Bm, Cm, dy) against
+    both twins, twice, with its launches counted."""
+    b, h, s, p, n = args[0].shape + args[3].shape[-1:]
+    assert ss.bwd_kernel_variant(torch.bfloat16, p, n) == "tc"
+    before = (ss.LAUNCHES["ssm_scan_bwd"], ss.LAUNCHES["ssm_scan_bwd_tc"])
+    got = ss.ssm_scan_bwd(*args, chunk=s)
+    again = ss.ssm_scan_bwd(*args, chunk=s)
+    torch.cuda.synchronize()
+    assert (ss.LAUNCHES["ssm_scan_bwd"], ss.LAUNCHES["ssm_scan_bwd_tc"]) \
+        == (before[0] + 2, before[1] + 2)
+    twin = ss.ssm_scan_bwd_chunked_plain(*args, operands="bf16")
+    scan = ss.ssm_scan_bwd(*args, chunk=s, impl="plain")
+    tol = SSM_TOL[torch.bfloat16]
+    types = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+             torch.bfloat16)
+    for g, w, q, r, t, axis in zip(got, twin, scan, again, types,
+                                   SSM_STEP_AXES):
+        assert g.dtype == t and g.shape == q.shape
+        assert torch.equal(g, r)
+        assert _step_tiles(g, w, axis) <= SSM_TC_TILE_NORMWISE
+        torch.testing.assert_close(g, q, rtol=tol, atol=tol)
+
+
+def test_ssm_scan_bwd_tc_kernel_rejects_and_reports_a_failed_launch(
+        cuda_device):
+    """``variant="tc"`` is refused for fp32 and for a (P, N) the kernel
+    does not take, before a launch; the C entry refuses them too (-1
+    workspace, an error code that ``check`` raises)."""
+    args = _bwd_inputs(1, 2, 64, 20, 16, torch.bfloat16, cuda_device, 0)
+    with pytest.raises(ValueError, match="tensor-core"):
+        ss.ssm_scan_bwd(*args, variant="tc")
+    f32 = _bwd_inputs(1, 2, 64, 16, 16, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="tensor-core"):
+        ss.ssm_scan_bwd(*f32, variant="tc")
+    lib = load_library().lib
+    assert lib.repro_ssm_scan_bwd_tc_workspace(1, 2, 64, 20, 16) == -1
+    assert lib.repro_ssm_scan_bwd_tc_workspace(1, 2, 64, 16, 72) == -1
+    x, a, dt, bm, cm, dy = args
+    code = lib.repro_ssm_scan_bwd_tc(
+        *(t.data_ptr() for t in (x, a, dt, bm, cm, dy, x, a, dt, bm, cm,
+                                 dy)),
+        1, 2, 64, 20, 16, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError,
+                       match="ssm_scan_bwd_tc kernel launch failed"):
+        check(code, "ssm_scan_bwd_tc")
 
 
 def test_hybrid_forward_on_card_counts_launches(cuda_device):
@@ -979,7 +1076,7 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
         torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
         assert torch.equal(g, r)
         if ran == "tc":
-            assert _tile_normwise(g, w) <= TC_BWD_TILE_NORMWISE
+            assert _step_tiles(g, w, 2) <= TC_BWD_TILE_NORMWISE
 
 
 #: One smoke config a family, at S=2048 (the flash path) with remat: (arch,
@@ -990,7 +1087,8 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, b, h, hkv, s, dh,
 #: in fp32 the kernels equal the plain path bit for bit.  hubert (bf16 dh
 #: 80, non-causal), llama and chameleon (bf16 dh 64) take the tensor-core
 #: flash backward (hubert's forward the SIMT kernel), zamba2 the SIMT one
-#: at its smoke dh 16 and ssm_scan's backward.
+#: at its smoke dh 16 and ssm_scan's tensor-core backward (bf16, P = N =
+#: 16).
 TRAIN_FAMILIES = {"dense": ("llama3-8b", "bfloat16", 64),
                   "moe": ("moonshot-v1-16b-a3b", "float32", None),
                   "hybrid": ("zamba2-2.7b", "bfloat16", None),
@@ -1012,7 +1110,7 @@ def _train_launches(cfg):
     want = dict.fromkeys(("rmsnorm", "rmsnorm_bwd", "flash_attention",
                           "flash_attention_tc", "flash_attention_bwd",
                           "flash_attention_bwd_tc", "ssm_scan",
-                          "ssm_scan_bwd"), 0)
+                          "ssm_scan_bwd", "ssm_scan_bwd_tc"), 0)
     if cfg.family == "hybrid":
         want.update(rmsnorm=6 * L + 4 * n + 1, rmsnorm_bwd=2 * L + 2 * n + 1,
                     flash_attention=2 * n, flash_attention_bwd=n,
@@ -1027,6 +1125,9 @@ def _train_launches(cfg):
         want["flash_attention_tc"] = want["flash_attention"]
     if fa.bwd_kernel_variant(dtype, cfg.dh) == "tc":
         want["flash_attention_bwd_tc"] = want["flash_attention_bwd"]
+    if cfg.family == "hybrid" and ss.bwd_kernel_variant(
+            dtype, cfg.ssm.head_dim, cfg.ssm.state_dim) == "tc":
+        want["ssm_scan_bwd_tc"] = want["ssm_scan_bwd"]
     return want
 
 
