@@ -22,12 +22,12 @@ port's two paths:
   and the mixed family), each record held against the engine's;
 * recorded MPI traces (``repro_torch.traces``): four 64-rank recordings
   written as JSONL, loaded, replay-validated and held against the
-  recorded graphs, then their 384-cell ``ScenarioFamily.from_corpus``
+  recorded graphs, then their 192-cell ``ScenarioFamily.from_corpus``
   family through the sweep, the service and the serve CLI's
   ``--trace-corpus`` mode (once with ``REPRO_TRACE`` set), 12 cells
   against ``impl="plain"`` and the event simulator;
 * the cluster scheduler (``repro_torch.cluster``): the bundled 1,000-job
-  arrival stream on 12 nodes and a 128-job stream over those four
+  arrival stream on 12 nodes and a 64-job stream over those four
   recordings on 256 nodes, each calibrated, scheduled under the four
   outer policies and replayed (every job's realized power schedule as
   its bound schedule) on the card, held against ``impl="plain"`` and
@@ -42,9 +42,15 @@ port's two paths:
   150), held against the CPU; the trainer's CLI in its own process, and
   ``"learned"`` with the checkpoint it wrote through the sweep on the
   per-wave ``power_step`` path, against ``impl="plain"``;
+* one LM step's job graph (``dryrun_job_graph``): llama3-8b x train_4k
+  dry-run on the 256-rank fake mesh in a child process on the CPU
+  (``repro_torch.launch.dryrun``, 2 of 32 layers), its collective
+  schedule turned into the paper's job graph on 16 nodes and swept by
+  equal-share, the heuristic and the ILP over 64 bounds on the card,
+  each record against ``impl="plain"`` and the event simulator;
 * the dense LM serving path at full width, llama3-8b with random bf16
   weights from a seed: ``ServeEngine.generate`` on 8 requests (prompt
-  512, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
+  256, 64 new tokens) and ``make_prefill_step`` at S=4096, each held
   against the same entry point at ``impl="plain"`` on the card
   (``rmsnorm``, and ``flash_attention`` on its tensor-core kernel);
 * the hybrid LM serving path at full width, zamba2-2.7b (54 Mamba2
@@ -55,7 +61,7 @@ port's two paths:
   its SIMT kernel, which keeps the prefill bit-equal to the plain path);
 * the other four model families at full width, each after the last
   one's weights are freed, through the same two entry points (8
-  requests of 128 prompt and 32 new tokens; prefill at S=4096):
+  requests of 64 prompt and 32 new tokens; prefill at S=4096):
   moonshot-v1-16b-a3b (MoE, 64 experts top-6, full depth, 56 GB),
   arctic-480b (128 experts top-2 and the dense residual FFN, depth cut
   to 1 layer), xlstm-350m (mLSTM and sLSTM, full depth),
@@ -1389,7 +1395,9 @@ def phase_service_mixed(torch, launches, cells, sweep, assignments):
 TRACE_MEMBERS = (("npb-is", "C"), ("npb-cg", "C"), ("npb-ep", "C"),
                  ("moe", "A"))
 TRACE_RANKS = 64
-TRACE_FRACS = 32
+#: bound fractions a member (32 until the ``dryrun_job_graph`` phase came:
+#: cut to hold the script's wall)
+TRACE_FRACS = 16
 TRACE_BUCKET_ROWS = 64
 #: Reconstructed vs recorded work (``graphs_match``'s rtol, absolute
 #: below 1 unit): the file round trip rounds each stamp to 1 ns.
@@ -1415,8 +1423,8 @@ TRACE_PLAIN_GROUPS = (
 
 
 def _trace_family(corpus_dir):
-    """The recorded corpus as a family: 32 bound fractions evenly in
-    [0.05, 0.95] x equal-share / oracle / heuristic (384 cells)."""
+    """The recorded corpus as a family: 16 bound fractions evenly in
+    [0.05, 0.95] x equal-share / oracle / heuristic (192 cells)."""
     import numpy as np
 
     from repro_torch.core import ScenarioFamily
@@ -1505,15 +1513,15 @@ def phase_trace_corpus(torch, launches, smi):
     card: four 64-rank heterogeneous recordings (``record_workload``,
     seed 0) written as JSONL, loaded strictly (``TraceCorpus.from_dir``),
     replay-validated and held against the recorded graphs; their family
-    (``ScenarioFamily.from_corpus``, 32 bound fractions x three policies,
-    384 cells) through ``SweepEngine(executor="torch")`` with the counts
+    (``ScenarioFamily.from_corpus``, 16 bound fractions x three policies,
+    192 cells) through ``SweepEngine(executor="torch")`` with the counts
     set to 0 just before it: no failure, no event fallback, every record
     on ``"torch"``, every bucket one wave_run launch, no kernel build.
     10 of 12 picked cells equal ``impl="plain"`` on the card (0.0; four
     spawned workers, ``TRACE_PLAIN_GROUPS``, beside the rest) and, for
     the exact policies, lie inside the event simulator's envelope (2 dt,
     1% energy; one more worker, on the host).  The
-    same 384 cells through ``SweepService(executor="torch",
+    same 192 cells through ``SweepService(executor="torch",
     bucket_rows=64)`` as a burst: every record 0.0 against the sweep's.
     Then the serve CLI's sweep mode in process on the recorded corpus
     (``--expect-clean``), and in a subprocess on ``examples/traces`` with
@@ -1793,8 +1801,10 @@ CLUSTER_BOUND_FRAC = 0.5
 CLUSTER_LEVELS = 6
 #: Stream B: a Poisson stream over the four 64-rank recordings of
 #: ``trace_corpus`` (``TRACE_MEMBERS``) on a 256-node pool, offered
-#: ``CLUSTER_RATE_FACTOR`` x what four jobs at full power finish.
-CLUSTER_CORPUS_JOBS = 128
+#: ``CLUSTER_RATE_FACTOR`` x what four jobs at full power finish (128 jobs
+#: until the ``dryrun_job_graph`` phase came: cut to hold the script's
+#: wall).
+CLUSTER_CORPUS_JOBS = 64
 CLUSTER_CORPUS_NODES = 256
 CLUSTER_RATE_FACTOR = 1.5
 #: The event simulator's envelope (and the vector backend's control
@@ -2526,10 +2536,225 @@ def phase_diff(torch, device, launches, smi):
     return learned["launches"]
 
 
+# ------------------------------------------------------ dry-run job graph
+#: ``dryrun_job_graph``: the dry run's cell on the 256-rank fake mesh,
+#: its depth cut as ``train_full_width``'s (widths, batch and sequence
+#: the cell's), run in a child process on the CPU (the fake process group
+#: must not share this process); the step's job graph and its sweep
+DRYRUN_CELL = ("llama3-8b", "train_4k", 2)
+DRYRUN_NODES, DRYRUN_BOUNDS = 16, 64
+DRYRUN_POLICIES = ("equal-share", "heuristic", "ilp")
+#: The paper's ILP on the step's 1,040-job graph is not solved to
+#: optimality in 120 s a bound (a CPU measurement), so each of a bound's
+#: two solves (t*, then the tie-break) is capped, as ``sweep_mixed``'s
+#: ILP cells are, and the 64 bounds are solved in a pool of host
+#: processes before the sweep (at 0.5 s HiGHS has no incumbent yet).
+DRYRUN_ILP_S = 2.0
+#: The heuristic's rows held against the plain path: the highest
+#: bounds, its fewest tick waves (the plain path runs a wave's ops from
+#: the host; its 64 rows took 47-98 s beside one H100, runs EC and EJ),
+#: as in ``trace_corpus``; equal-share's and the ILP's rows are held all.
+DRYRUN_HEURISTIC_PLAIN = 16
+
+
+def _dryrun_artifact():
+    """The dry run of :data:`DRYRUN_CELL` in a child process with no card
+    (``python -m repro_torch.launch.dryrun``); (its artifact, the child's
+    wall s, its last line)."""
+    import os
+
+    arch, shape, layers = DRYRUN_CELL
+    out = ROOT / "build" / "dryrun_job_graph"
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--layers", str(layers),
+         "--out", str(out)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"dry run exit {proc.returncode}:\n{proc.stdout[-3000:]}"
+            f"\n{proc.stderr[-3000:]}")
+    path = out / f"{arch}__{shape}__pod16x16.json"
+    return (json.loads(path.read_text()), wall,
+            proc.stdout.strip().splitlines()[0])
+
+
+def _solve_ilp(args):
+    """Pool worker: the paper's ILP at one bound."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.ilp import solve_paper_ilp
+
+    graph, specs, bound, limit = args
+    return solve_paper_ilp(graph, specs, bound, time_limit=limit)
+
+
+def _event_row(args):
+    """Pool worker: one row on the event simulator (makespan, energy)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import simulate
+
+    graph, specs, bound, policy, assignment, latency = args
+    ev = simulate(graph, specs, bound, policy, assignment=assignment,
+                  latency_s=latency)
+    return ev.makespan, ev.energy_j
+
+
+def phase_dryrun_job_graph(torch, launches, smi):
+    """One LM step's collective schedule as the paper's job graph, swept
+    on the card: the dry run of :data:`DRYRUN_CELL` (a child process),
+    ``step_job_graph(schedule, n_nodes=16, skew=0.15, seed=0)``, and
+    equal-share, the heuristic and the ILP over 64 bounds of
+    ``heterogeneous_cluster(16, seed=0)`` through ``SweepEngine(executor=
+    "torch")`` (the launch counts set to 0 just before it).  Equal-share's
+    and the ILP's records, and the heuristic's at its
+    :data:`DRYRUN_HEURISTIC_PLAIN` highest bounds, equal the same cells
+    at ``impl="plain"`` (0.0); equal-share's and the ILP's lie inside the
+    event simulator's envelope (2 dt, 1% energy; the heuristic's batched
+    answers are not the event simulator's, as in ``sweep_mixed``).
+    Returns the launch counts."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.core import Scenario, SweepEngine
+    from repro_torch.core.hlo_extract import step_job_graph
+    from repro_torch.core.power import (heterogeneous_cluster,
+                                        max_useful_cluster_bound,
+                                        min_feasible_cluster_bound)
+
+    art, child_s, child_line = _dryrun_artifact()
+    sched = art["schedule"]
+    kinds = {k for k, _ in sched}
+    require(art["n_devices"] == 256 and art["cost"]["flops"] > 0
+            and art["peak_bytes_per_device"] > 0 and sched
+            and kinds <= {"all-gather", "all-reduce", "reduce-scatter",
+                          "all-to-all", "collective-permute"},
+            f"dry-run artifact: {art['n_devices']} devices, collectives "
+            f"{art['collectives_per_device']}")
+    graph = step_job_graph(sched, n_nodes=DRYRUN_NODES, skew=0.15, seed=0)
+    specs = tuple(heterogeneous_cluster(DRYRUN_NODES, seed=0))
+    bounds = np.linspace(1.05 * min_feasible_cluster_bound(specs),
+                         max_useful_cluster_bound(specs), DRYRUN_BOUNDS)
+    cells = [Scenario(f"{p}@{i}", graph, specs, float(b), p,
+                      ilp_time_limit=DRYRUN_ILP_S)
+             for p in DRYRUN_POLICIES for i, b in enumerate(bounds)]
+    engine = SweepEngine(executor="torch")
+    plain_engine = SweepEngine(executor="torch", impl="plain")
+    plain_engine._assignments = engine._assignments   # the same ILP caps
+    ilp_cells = [c for c in cells if c.policy == "ilp"]
+    other = [c for c in cells if c.policy == "equal-share"] + [
+        c for c in cells if c.policy == "heuristic"][-DRYRUN_HEURISTIC_PLAIN:]
+
+    def event(pool, c, assignment=None):
+        return pool.submit(_event_row, (graph, list(specs), c.bound_w,
+                                         c.policy, assignment, c.latency_s))
+
+    # a pool of host processes solves the ILP's bounds and runs the
+    # event simulator while the card runs the plain rows (the yardstick,
+    # not timed against anything); the kernel sweep runs on a quiet host
+    with ProcessPoolExecutor(max_workers=os.cpu_count(),
+                             mp_context=mp.get_context("spawn")) as pool:
+        t0 = time.perf_counter()
+        futures = [pool.submit(_solve_ilp, (graph, list(specs), c.bound_w,
+                                            DRYRUN_ILP_S))
+                   for c in ilp_cells]
+        events = {c.name: event(pool, c) for c in other
+                  if c.policy in EXACT_POLICIES}
+        t1 = time.perf_counter()
+        plain_other = plain_engine.run(other)
+        plain_wall = time.perf_counter() - t1
+        solved = [f.result() for f in futures]
+        ilp_s = time.perf_counter() - t0
+        for f in events.values():
+            f.result()
+        for c, a in zip(ilp_cells, solved):
+            engine._assignments.put(c, a)
+        for key in launches:
+            launches[key] = 0
+        t0 = time.perf_counter()
+        sweep = engine.run(cells)
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+        events.update({c.name: event(pool, c, a)
+                       for c, a in zip(ilp_cells, solved)})
+        t1 = time.perf_counter()
+        plain_ilp = plain_engine.run(ilp_cells)
+        plain_wall += time.perf_counter() - t1
+        events = {k: f.result() for k, f in events.items()}
+    plain = {r.scenario.name: r for r in
+             plain_other.records + plain_ilp.records}
+    held = [r for r in sweep.records if r.scenario.name in plain]
+    for name, sw in (("kernel", sweep), ("plain", plain_other),
+                     ("plain ILP", plain_ilp)):
+        require(not sw.failures and all(r.backend == "torch"
+                                        for r in sw.records),
+                f"dryrun_job_graph {name}: {len(sw.failures)} failed, "
+                f"backends {sw.backend_summary()}")
+    paths = {b.bucket: b.path for b in sweep.profile.buckets}
+    require(set(paths.values()) == {"cuda"}
+            and got == {"power_step": 0, "waterfill": 0,
+                        "wave_run": len(paths)},
+            f"dryrun_job_graph: launches {got}, bucket paths {paths}")
+    _, abs_diff = _compare_results(
+        [r.result for r in held],
+        [plain[r.scenario.name].result for r in held],
+        "dryrun_job_graph kernel vs plain")
+    require(abs_diff == 0.0, f"dryrun_job_graph: max abs diff {abs_diff} "
+                             f"vs impl='plain'")
+    worst_ms = worst_e = 0.0
+    for rec in sweep.records:
+        if rec.scenario.name not in events:
+            continue
+        ev_ms, ev_e = events[rec.scenario.name]
+        d_ms = abs(rec.result.makespan - ev_ms)
+        d_e = abs(rec.result.energy_j - ev_e) / ev_e
+        require(d_ms <= 2 * 0.05 and d_e <= 0.01,
+                f"dryrun_job_graph {rec.scenario.name}: makespan "
+                f"{rec.result.makespan} vs event {ev_ms}, energy "
+                f"{rec.result.energy_j} vs {ev_e}")
+        worst_ms, worst_e = max(worst_ms, d_ms), max(worst_e, d_e)
+    require(len(events) == 2 * DRYRUN_BOUNDS,
+            f"dryrun_job_graph: {len(events)} rows on the event simulator")
+    mk = {p: np.array([r.result.makespan for r in sweep.records
+                       if r.scenario.policy == p]) for p in DRYRUN_POLICIES}
+    base = mk["equal-share"]
+    by_policy = {p: {"makespan_s_mean": float(m.mean()),
+                     "makespan_s": [float(m.min()), float(m.max())],
+                     "speedup_vs_equal_share_mean": float((base / m).mean()),
+                     "speedup_vs_equal_share": [float((base / m).min()),
+                                                float((base / m).max())]}
+                 for p, m in mk.items()}
+    emit("dryrun_job_graph", nvidia_smi=smi,
+         cell=dict(zip(("arch", "shape", "layers"), DRYRUN_CELL)),
+         mesh=art["mesh"], child_s=child_s, child_line=child_line,
+         dryrun_s=art["compile_seconds"],
+         collectives=art["collectives_per_device"],
+         n_collectives=len(sched), reshape_regathers=len(
+             art["reshape_regathers"]),
+         peak_gib_per_device=art["peak_bytes_per_device"] / 2**30,
+         flops_per_device=art["cost"]["flops"], graph_jobs=len(graph.jobs),
+         graph_levels=graph.stats()["depth_levels"], nodes=DRYRUN_NODES,
+         bounds_w=[float(bounds[0]), float(bounds[-1])],
+         ilp_solve_s=ilp_s, ilp_time_limit_s=DRYRUN_ILP_S, wall_s=wall,
+         plain_wall_s=plain_wall, plain_rows=len(held), launches=got,
+         max_abs_diff_vs_plain=abs_diff,
+         max_makespan_diff_vs_event_s=worst_ms,
+         max_energy_rel_vs_event=worst_e, policies=by_policy,
+         profile=_bucket_profiles(sweep))
+    return got
+
+
 # ------------------------------------------------------------ LM phases
 LLAMA = "llama3-8b"
 ZAMBA = "zamba2-2.7b"
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
+#: The serve phases' requests, prompt and new tokens (prompts of 512
+#: until the ``dryrun_job_graph`` phase came: cut to hold the script's
+#: wall)
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
 PREFILL_SEQ = 4096
 FLASH_MAIN = (1, 32, 8, PREFILL_SEQ, 128)
 #: zamba2's shared attention at the prefill: 32 heads of 80, MHA
@@ -2551,8 +2776,8 @@ FAMILY_RUNS = (
     (CHAMELEON, "chameleon", 8, "serve_chameleon", "prefill_chameleon"),
     (HUBERT, "encoder", None, None, "prefill_full_width_encoder"))
 #: Their serve phases' prompt and new tokens (llama and zamba2 keep
-#: 512 and 64).
-FAMILY_PROMPT, FAMILY_NEW = 128, 32
+#: 256 and 64; prompts of 128 until the ``dryrun_job_graph`` phase came).
+FAMILY_PROMPT, FAMILY_NEW = 64, 32
 #: Their prefills' attention, (B, H, Hkv, S, dh): GQA groups 1, 7 and 8
 #: on the tensor-core kernel, causal; hubert's dh 80 on the SIMT kernel,
 #: non-causal.
@@ -3954,8 +4179,11 @@ def _train_steps(torch, counters, tr, want_step, n_steps, n_params, what):
     returns, before the loss is read back): near ``ms`` when the host sets
     the step's pace, below it when the card does; ``device_span_ms`` the
     card's time from the step's first launch to its last kernel's end
-    (CUDA events)."""
+    (CUDA events); the model-FLOPs share is the H100 roofline's
+    (:func:`repro_torch.core.roofline.model_flops_share`)."""
     import numpy as np
+
+    from repro_torch.core.roofline import model_flops_share
 
     per_step, host_ms, spans, step_fn = [], [], [], tr.train_step
 
@@ -3994,8 +4222,8 @@ def _train_steps(torch, counters, tr, want_step, n_steps, n_params, what):
     steps = [{"step": r.step, "loss": r.loss, "ms": 1e3 * r.wall_s,
               "host_ms": host, "device_span_ms": a.elapsed_time(b),
               "tokens_per_s": tokens / r.wall_s,
-              "model_flops_share": 6 * n_params * tokens
-              / (r.wall_s * BF16_TENSOR_OPS_PER_S),
+              "model_flops_share": model_flops_share(n_params, tokens,
+                                                     r.wall_s),
               "straggler": r.straggler, "max_cap_w": max(r.caps_w)}
              for r, host, (a, b) in zip(history, host_ms, spans)]
     return launches, {"steps": steps, "launches": launches,
@@ -4707,6 +4935,7 @@ def sim_phases(torch, device, counters, smi):
     trace_corpus = phase_trace_corpus(torch, ps.LAUNCHES, smi)
     cluster = phase_cluster(torch, ps.LAUNCHES, smi)
     diff = phase_diff(torch, device, ps.LAUNCHES, smi)
+    dryrun = phase_dryrun_job_graph(torch, ps.LAUNCHES, smi)
 
     src = "src/repro_torch/kernels/csrc/power_step.cu"
     per_wave = ("the per-wave entry points run on the engine's \"step\" "
@@ -4724,6 +4953,7 @@ def sim_phases(torch, device, counters, smi):
          "launches_service_mixed": service_mixed["wave_run"],
          "launches_trace_corpus": trace_corpus["wave_run"],
          "launches_cluster": cluster["wave_run"],
+         "launches_dryrun_job_graph": dryrun["wave_run"],
          "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
          "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
          "ms_heuristic": fw["ms_heuristic"],

@@ -323,3 +323,16 @@ def opt_state_from_reference(cfg, state, device="cpu"):
         for name, t in moments.items():
             out.setdefault(name, {})[key] = t
     return out
+
+
+def reference_path(name: str) -> str:
+    """The reference's ``/``-joined parameter path of a port parameter
+    name, as :func:`params_from_reference` maps one to the other: the
+    layer indices dropped (the reference stacks the layers), the hybrid
+    family's ``shared`` block named ``shared_attn``
+    (``blocks.3.attn.wq`` -> ``blocks/attn/wq``, ``mamba.1.0.ssm.conv``
+    -> ``mamba/ssm/conv``, ``shared.ffn.wi`` -> ``shared_attn/ffn/wi``)."""
+    parts = [p for p in name.split(".") if not p.isdigit()]
+    if parts[0] == "shared":
+        parts[0] = "shared_attn"
+    return "/".join(parts)

@@ -526,9 +526,14 @@ class AssignmentCache:
                   else solve_paper_ilp)
         assignment = solver(s.graph, list(s.specs), s.bound_w,
                             time_limit=s.ilp_time_limit)
-        with self._lock:
-            self._cache[key] = (s.graph, assignment)
+        self.put(s, assignment)
         return assignment
+
+    def put(self, s: Scenario, assignment: PowerAssignment) -> None:
+        """Keep ``assignment`` as the scenario's solve (one solved
+        elsewhere, e.g. in a process pool)."""
+        with self._lock:
+            self._cache[self.key(s)] = (s.graph, assignment)
 
 
 def build_batch_sim(backend: str, scens: List[Scenario],

@@ -6,6 +6,12 @@ passed (``None`` raises without CUDA); the parameters must live on that
 device, and the inputs (tokens, or the encoder's frames) are moved there.
 The train step runs where the model's parameters live and moves the
 batch there.
+
+:func:`abstract_params`, :func:`input_specs` and :func:`abstract_cache`
+give a cell's parameters, inputs and decode cache as tensors on the
+``meta`` device (shapes and types, no storage), as the reference's
+``ShapeDtypeStruct`` stand-ins: the dry run
+(:mod:`repro_torch.launch.dryrun`) shards them on its mesh.
 """
 
 from __future__ import annotations
@@ -14,11 +20,73 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.backends.engine import resolve_device
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import decode_step, forward, loss_fn
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels.ops import is_dtensor
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      init_params, loss_fn)
 from repro_torch.optim import AdamWConfig, adamw_update
+
+
+# ------------------------------------------------------------ input specs
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a call creates lies on ``meta``: a ``device`` argument
+    is replaced, a draw is an ``empty`` of its shape and a write into a
+    slice is skipped (nothing is drawn or stored)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__setitem__:
+            return None
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        if func is torch.randn:
+            kwargs.pop("generator", None)
+            func = torch.empty
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The model of ``cfg`` with every parameter on ``meta``: the shapes,
+    types and names ``init_params`` gives, in a few milliseconds."""
+    with torch.device("meta"), _OnMeta():
+        return init_params(cfg, torch.Generator())
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Abstract model inputs of one (arch x shape) cell, on ``meta``, in
+    the reference's types:
+
+    train   : {tokens|frames, labels}
+    prefill : {tokens|frames}
+    decode  : {tokens (B, 1)} (the position is an int; the cache comes
+              from :func:`abstract_cache`)
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encoder":
+            out = {"frames": meta((b, s, cfg.d_model), dtype_of(cfg.dtype))}
+        else:
+            out = {"tokens": meta((b, s), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = meta((b, s), torch.int32)
+        return out
+    if shape.kind == "decode":
+        return {"tokens": meta((b, 1), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The decode cache of a cell (batch ``global_batch``, ``seq_len``
+    slots) on ``meta``."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len, "meta")
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -34,6 +102,27 @@ def _frames(frames, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(frames), device=device)
 
 
+def _serving(model):
+    """Inference mode, or ``no_grad`` for a model of DTensors (the dry
+    run's), whose redistributions cannot run on inference tensors."""
+    first = next(model.parameters())
+    return torch.no_grad() if is_dtensor(first) else torch.inference_mode()
+
+
+def _greedy(last: torch.Tensor) -> torch.Tensor:
+    """Each row's argmax over the vocab.  A DTensor row (the dry run's)
+    first gathers its vocab shards (one row of logits a lane): DTensor's
+    own argmax over a sharded dim gathers through a path the fake process
+    group does not shape right when the batch is not split."""
+    if is_dtensor(last):
+        from torch.distributed.tensor import Replicate, Shard
+
+        vocab = Shard(last.ndim - 1)
+        last = last.redistribute(last.device_mesh, [
+            Replicate() if pl == vocab else pl for pl in last.placements])
+    return last.argmax(dim=-1)
+
+
 def make_prefill_step(cfg: ModelConfig, device=None,
                       impl: Optional[str] = None):
     """(params, batch) -> logits ``(B, S, V)``; the batch is ``{"tokens":
@@ -41,13 +130,13 @@ def make_prefill_step(cfg: ModelConfig, device=None,
     (as the reference's ``input_specs``)."""
     dev = resolve_device(device)
 
-    @torch.inference_mode()
     def prefill_step(params, batch):
-        if cfg.family == "encoder":
-            inputs = {"frames": _frames(batch["frames"], dev)}
-        else:
-            inputs = {"tokens": _tokens(batch["tokens"], dev)}
-        logits, _aux = forward(cfg, params, inputs, impl=impl)
+        with _serving(params):
+            if cfg.family == "encoder":
+                inputs = {"frames": _frames(batch["frames"], dev)}
+            else:
+                inputs = {"tokens": _tokens(batch["tokens"], dev)}
+            logits, _aux = forward(cfg, params, inputs, impl=impl)
         return logits
 
     return prefill_step
@@ -59,11 +148,11 @@ def make_serve_step(cfg: ModelConfig, device=None,
     logits ``(B, 1, V)``, cache); greedy, the cache written in place."""
     dev = resolve_device(device)
 
-    @torch.inference_mode()
     def serve_step(params, cache, tokens, pos: int):
-        logits, cache = decode_step(cfg, params, cache, _tokens(tokens, dev),
-                                    pos, impl=impl)
-        return logits[:, -1].argmax(dim=-1), logits, cache
+        with _serving(params):
+            logits, cache = decode_step(cfg, params, cache,
+                                        _tokens(tokens, dev), pos, impl=impl)
+            return _greedy(logits[:, -1]), logits, cache
 
     return serve_step
 
@@ -78,6 +167,24 @@ def train_batch(batch, device) -> dict:
         else:
             out[key] = _tokens(val, device)
     return out
+
+
+def _microbatches(v: torch.Tensor, m: int):
+    """``v`` split along dim 0 into ``m`` microbatches: rows ``i * B/m ..``
+    of the batch, as the reference's reshape.  A DTensor batch (the dry
+    run's) splits each rank's own rows the same way, so its rows stay
+    where they are, as data-parallel microbatching keeps them."""
+    if not is_dtensor(v):
+        return v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+    from torch.distributed.tensor import DTensor
+
+    local = v.to_local()
+    parts = local.reshape((m, local.shape[0] // m) + tuple(local.shape[1:]))
+    shape = (v.shape[0] // m,) + tuple(v.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(parts[i], v.device_mesh, v.placements,
+                               run_check=False, shape=shape, stride=stride)
+            for i in range(m)]
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -122,10 +229,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             if rows % n_microbatches:
                 raise ValueError(f"batch of {rows} rows does not split into "
                                  f"{n_microbatches} microbatches")
-            micro = {k: v.reshape((n_microbatches, rows // n_microbatches)
-                                  + tuple(v.shape[1:]))
+            micro = {k: _microbatches(v, n_microbatches)
                      for k, v in batch.items()}
-            grads = {k: torch.zeros(p.shape, dtype=accum_dtype, device=dev)
+            grads = {k: torch.zeros_like(p, dtype=accum_dtype)
                      for k, p in params.items()}
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             aux_sum = torch.zeros_like(loss_sum)

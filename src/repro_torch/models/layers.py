@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ops
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -61,8 +61,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
     ``rmsnorm`` kernel on the card (its ``layer_form``)."""
     if gamma.dtype != x.dtype:
         gamma = gamma.to(x.dtype)
-    return _rmsnorm.rmsnorm(x.contiguous(), gamma.contiguous(), eps,
-                            layer_form=True, impl=impl)
+    return ops.rmsnorm(x, gamma, eps=eps, layer_form=True, impl=impl)
 
 
 # ------------------------------------------------------------------- loss
@@ -71,13 +70,59 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token cross-entropy in fp32 over the positions whose label
     is not ``ignore_id`` (0 when there is none).  The reference extracts
     the gold logit with a one-hot contraction (for vocab-sharded logits);
-    on one device a gather takes the same value."""
+    on one device a gather takes the same value.  DTensor logits (the dry
+    run's, vocab-sharded) go through :func:`_xent_terms_sharded`."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    if ops.is_dtensor(logits):
+        logz, gold = _xent_terms_sharded(logits, labels.clamp(min=0).long())
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def _xent_terms_sharded(logits: torch.Tensor, labels: torch.Tensor):
+    """``(logsumexp(logits, -1), logits[..., labels])`` of DTensor logits
+    whose vocab may be sharded, with the vocab never gathered
+    (``local_map``): each rank reduces its vocab shard, and the shards
+    combine through all-reduces over the mesh dims that split the vocab
+    (max, then the sum of exponentials, as a compiler reduces a sharded
+    ``logsumexp``); each rank takes the gold logits its shard holds, 0
+    elsewhere, a partial sum over those dims."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, vocab = logits.device_mesh, logits.ndim - 1
+    in_pl = tuple(pl if isinstance(pl, Shard) else Replicate()
+                  for pl in logits.placements)
+    split = [i for i, pl in enumerate(in_pl) if pl == Shard(vocab)]
+    row_pl = tuple(Replicate() if i in split else pl
+                   for i, pl in enumerate(in_pl))
+    gold_pl = tuple(Partial() if i in split else pl
+                    for i, pl in enumerate(in_pl))
+
+    def local(lg, lab):
+        n, off = compute_local_shape_and_global_offset(
+            logits.shape, mesh, in_pl)
+        m = lg.detach().amax(dim=-1)        # a stabiliser: no gradient
+        for dim in split:
+            m = funcol.all_reduce(m, "max", (mesh, dim))
+        z = torch.exp(lg - m[..., None]).sum(dim=-1)
+        for dim in split:
+            z = funcol.all_reduce(z, "sum", (mesh, dim))
+        idx = lab - off[vocab]
+        held = (idx >= 0) & (idx < n[vocab])
+        got = torch.gather(lg, -1, idx.clamp(0, n[vocab] - 1)[..., None])
+        return m + torch.log(z), torch.where(held, got[..., 0], 0.0)
+
+    return local_map(local, out_placements=(row_pl, gold_pl),
+                     in_placements=(in_pl, row_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 # ------------------------------------------------------------------- rope

@@ -4,7 +4,9 @@
 The reference scans stacked blocks over the layers; the port keeps them
 as ``nn.ModuleList``s (the converter unstacks the reference's ``(L, ...)``
 and ``(n_super, per_super, ...)`` leaves) and loops over them.  Its
-``constrain`` sharding hints are no-ops on one device and are dropped.
+``constrain`` sharding hints stand where the reference's do
+(:mod:`repro_torch.models.sharding`): the identity unless a policy is set
+and the activation is a DTensor (the dry run).
 
 * dense, vlm (chameleon-34b: early fusion, image tokens in the text
   vocabulary, so the dense code unchanged), moe, encoder: ``L`` pre-norm
@@ -76,6 +78,7 @@ from repro_torch.models.layers import (MLP, dense_init, dtype_of,
                                        embed_init, frozen, mlp_init, rmsnorm,
                                        rmsnorm_init, softmax_xent)
 from repro_torch.models.moe import MoE, moe_ffn, moe_init
+from repro_torch.models.sharding import constrain
 from repro_torch.models.ssm import SSM, ssm_decode, ssm_forward, ssm_init
 from repro_torch.models.xlstm import (MLSTM, SLSTM, mlstm_decode,
                                       mlstm_forward, mlstm_init,
@@ -283,7 +286,7 @@ def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor,
             impl: Optional[str]) -> torch.Tensor:
     x = rmsnorm(x, model.final_norm, cfg.norm_eps, impl)
     head = model.embed.T if model.lm_head is None else model.lm_head
-    return x @ head.to(x.dtype)
+    return constrain(x @ head.to(x.dtype), "dp", None, "mdl")
 
 
 def _ffn(cfg: ModelConfig, blk: Block, xn: torch.Tensor
@@ -307,6 +310,15 @@ def attn_block(cfg: ModelConfig, blk: Block, x: torch.Tensor,
                       impl=impl, **_attn_kwargs(cfg))
     out, aux = _ffn(cfg, blk, rmsnorm(x, blk.ln2, cfg.norm_eps, impl))
     return x + out, aux
+
+
+def _dense_layer(cfg: ModelConfig, blk: Block, x: torch.Tensor,
+                 positions: torch.Tensor, causal: bool, impl: Optional[str]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block of the dense, moe, vlm and encoder stacks, its output
+    constrained as the reference's scan body constrains it."""
+    x, aux = attn_block(cfg, blk, x, positions, causal, impl)
+    return constrain(x, "dp", "mdl", None), aux
 
 
 def _cell_forward(cfg: ModelConfig, blk: CellBlock, x: torch.Tensor,
@@ -351,14 +363,14 @@ def _hybrid_super(cfg: ModelConfig, shared: Block, sup, x: torch.Tensor,
     for blk in sup:
         x = _remat(cfg, _mamba_layer, cfg, blk, x, impl)
     x, _ = attn_block(cfg, shared, x, positions, True, impl)
-    return x
+    return constrain(x, "dp", "mdl", None)
 
 
 def _xlstm_super(cfg: ModelConfig, sup, sblk: CellBlock, x: torch.Tensor,
                  impl: Optional[str]) -> torch.Tensor:
     for blk in sup:
         x = _remat(cfg, _cell_forward, cfg, blk, x, impl)
-    return _cell_forward(cfg, sblk, x, impl)
+    return constrain(_cell_forward(cfg, sblk, x, impl), "dp", "mdl", None)
 
 
 def forward(cfg: ModelConfig, model: LM,
@@ -368,7 +380,7 @@ def forward(cfg: ModelConfig, model: LM,
     the encoder) -> (logits ``(B, S, V)``, the MoE auxiliary loss: the sum
     over layers, 0 for the other families)."""
     require_ported(cfg)
-    x = embed_inputs(cfg, model, batch)
+    x = constrain(embed_inputs(cfg, model, batch), "dp", "mdl", None)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -381,7 +393,7 @@ def forward(cfg: ModelConfig, model: LM,
             x = _remat(cfg, _xlstm_super, cfg, sup, sblk, x, impl)
     else:
         for blk in model.blocks:
-            x, aux_l = _remat(cfg, attn_block, cfg, blk, x, positions,
+            x, aux_l = _remat(cfg, _dense_layer, cfg, blk, x, positions,
                               cfg.causal, impl)
             if aux_l is not None:
                 aux = aux + aux_l

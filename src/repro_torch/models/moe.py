@@ -26,6 +26,9 @@ choice-major sequence, of each expert's indicator row (the sequence is
 the innermost axis, so the scan runs along rows): the reference's
 per-choice cumsum plus its running ``base`` count, the same integers, so
 the same tokens drop.
+
+Under a sharding policy, on a DTensor batch (the dry run), the FFN runs
+as :func:`_moe_ffn_sharded`, with the reference's ``constrain`` sites.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.models.layers import MLP, dense_init, frozen, mlp_init
+from repro_torch.models.sharding import constrain, get_policy, is_dtensor
 
 
 class MoE(nn.Module):
@@ -96,11 +100,10 @@ class Routing(NamedTuple):
     capacity: int            # C, slots per expert and batch row
 
 
-def route(router: torch.Tensor, x: torch.Tensor, *, n_experts: int,
-          top_k: int, capacity_factor: float) -> Routing:
-    """Router probabilities, top-k choices, the auxiliary loss and each
-    choice's slot, ranked choice-major per batch row (see the module
-    doc)."""
+def _route(router: torch.Tensor, x: torch.Tensor, *, n_experts: int,
+           top_k: int, capacity_factor: float):
+    """:func:`route`'s ``Routing``, and the auxiliary loss's two factors:
+    each expert's mean probability and mean share of choices (E,)."""
     b, s, _ = x.shape
     e, k = n_experts, top_k
     cap = capacity(s, e, k, capacity_factor)
@@ -118,7 +121,49 @@ def route(router: torch.Tensor, x: torch.Tensor, *, n_experts: int,
     pos = ranks.gather(1, flat).view(b, k, s).transpose(1, 2)     # (B,S,k)
     keep = pos < cap
     return Routing(gate_w, gate_idx, torch.where(keep, pos, cap - 1), keep,
-                   aux, cap)
+                   aux, cap), me, ce
+
+
+def route(router: torch.Tensor, x: torch.Tensor, *, n_experts: int,
+          top_k: int, capacity_factor: float) -> Routing:
+    """Router probabilities, top-k choices, the auxiliary loss and each
+    choice's slot, ranked choice-major per batch row (see the module
+    doc)."""
+    return _route(router, x, n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor)[0]
+
+
+def _dispatch(r: Routing, x: torch.Tensor, n_experts: int):
+    """(each choice's row of the flat ``(B*E*C, d)`` buffer ``(B, S, k)``,
+    the buffer ``(B, E, C, d)`` with every kept token added into its
+    slot)."""
+    b, s, d = x.shape
+    e, cap = n_experts, r.capacity
+    rows = torch.arange(b, device=x.device)[:, None, None] * (e * cap)
+    slot = rows + r.gate_idx * cap + r.pos                        # (B,S,k)
+
+    contrib = x[:, :, None, :] * r.keep[..., None].to(x.dtype)    # (B,S,k,d)
+    buf = torch.zeros((b * e * cap, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot.reshape(-1), contrib.reshape(-1, d))
+    return slot, buf.view(b, e, cap, d)
+
+
+def _combine(out_buf: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """Each choice's expert output (rows ``slot`` of ``out_buf`` as ``(B*E*C,
+    d)``) times its weight ``w (B, S, k)``, added in choice order."""
+    picked = out_buf.reshape(-1, x.shape[-1])[slot]               # (B,S,k,d)
+    out = torch.zeros_like(x)
+    for j in range(slot.shape[-1]):
+        out = out + picked[:, :, j] * w[..., j, None]
+    return out
+
+
+def _experts(p: MoE, buf: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLU over the dispatch buffer ``(B, E, C, d)``."""
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p.wg)) * \
+        torch.einsum("becd,edf->becf", buf, p.wi)
+    return torch.einsum("becf,efd->becd", h, p.wo)
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -127,28 +172,58 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     """x ``(B, S, d)`` -> (out ``(B, S, d)`` in x's type, the auxiliary
     load-balancing loss, an fp32 scalar).  Each batch row is a dispatch
     group with its own capacity, as in the reference."""
-    b, s, d = x.shape
+    if get_policy() is not None and is_dtensor(x):
+        return _moe_ffn_sharded(p, x, n_experts=n_experts, top_k=top_k,
+                                capacity_factor=capacity_factor)
     e, k = n_experts, top_k
     r = route(p.router, x, n_experts=e, top_k=k,
               capacity_factor=capacity_factor)
-    cap = r.capacity
-    rows = torch.arange(b, device=x.device)[:, None, None] * (e * cap)
-    slot = rows + r.gate_idx * cap + r.pos                        # (B,S,k)
-
-    contrib = x[:, :, None, :] * r.keep[..., None].to(x.dtype)    # (B,S,k,d)
-    buf = torch.zeros((b * e * cap, d), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot.reshape(-1), contrib.reshape(-1, d))
-    buf = buf.view(b, e, cap, d)
-
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p.wg)) * \
-        torch.einsum("becd,edf->becf", buf, p.wi)
-    out_buf = torch.einsum("becf,efd->becd", h, p.wo).reshape(-1, d)
-
-    picked = out_buf[slot]                                        # (B,S,k,d)
-    w = (r.gate_w * r.keep).to(x.dtype)
-    out = torch.zeros_like(x)
-    for j in range(k):
-        out = out + picked[:, :, j] * w[..., j, None]
+    slot, buf = _dispatch(r, x, e)
+    out = _combine(_experts(p, buf), slot,
+                   (r.gate_w * r.keep).to(x.dtype), x)
     if p.dense is not None:          # Arctic-style dense residual branch
         out = out + p.dense(x)
     return out, r.aux
+
+
+def _moe_ffn_sharded(p: MoE, x: torch.Tensor, *, n_experts: int,
+                     top_k: int, capacity_factor: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_ffn` on a DTensor batch under a sharding policy, with the
+    reference's constraints: routing and dispatch run on each data shard's
+    own rows (``local_map``: a row is its own dispatch group, so this is
+    the same arithmetic), the ``(B, E, C, d)`` buffer is redistributed to
+    experts over the model axis for the expert products and back to the
+    batch split for the local combine.  The slots a shard's routing gives
+    count its own rows from 0; only its own combine reads them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    e, k = n_experts, top_k
+    x = constrain(x, "dp", None, None)
+    mesh = x.device_mesh
+    bp = tuple(pl if pl == Shard(0) else Replicate() for pl in x.placements)
+    avg = tuple(Partial("avg") if pl == Shard(0) else Replicate()
+                for pl in bp)
+    rep = (Replicate(),) * mesh.ndim
+
+    def local_dispatch(router, xl):
+        r, me, ce = _route(router, xl, n_experts=e, top_k=k,
+                           capacity_factor=capacity_factor)
+        slot, buf = _dispatch(r, xl, e)
+        return buf, slot, (r.gate_w * r.keep).to(xl.dtype), me, ce
+
+    buf, slot, w, me, ce = local_map(
+        local_dispatch, out_placements=(bp, bp, bp, avg, avg),
+        in_placements=(rep, bp), device_mesh=mesh,
+        redistribute_inputs=True)(p.router, x)
+    aux = e * (me * (ce / k)).sum()
+    # batch-sharded -> expert-sharded boundary, and back for the combine
+    buf = constrain(buf, None, "mdl", None, None)
+    out_buf = constrain(_experts(p, buf), "dp", None, None, None)
+    out = local_map(_combine, out_placements=list(bp),
+                    in_placements=(bp, bp, bp, bp), device_mesh=mesh,
+                    redistribute_inputs=True)(out_buf, slot, w, x)
+    if p.dense is not None:
+        out = out + p.dense(x)
+    return out, aux

@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.sharding import along_sequence, constrain
 from repro_torch.models.layers import dense_init, frozen, rmsnorm
 
 
@@ -79,7 +80,12 @@ def _split_proj(cfg_dims, proj: torch.Tensor):
 
 def _causal_conv(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along axis 1, then SiLU; seq ``(B, S, D)``, w
-    ``(W, D)``."""
+    ``(W, D)`` (on a DTensor, each rank's shard with the sequence whole:
+    :func:`~repro_torch.models.sharding.along_sequence`)."""
+    return along_sequence(_causal_conv_local, seq, w)
+
+
+def _causal_conv_local(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     width = w.shape[0]
     pad = F.pad(seq, (0, 0, width - 1, 0))
     out = torch.zeros_like(seq)
@@ -126,6 +132,10 @@ def ssm_forward(p: SSM, x_in: torch.Tensor, *, expand: int, state_dim: int,
         xs = F.pad(xs, (0, 0, 0, pad))
         a_s, dt_s = F.pad(a_s, (0, pad)), F.pad(dt_s, (0, pad))
         bm, cm = F.pad(bm, (0, 0, 0, pad)), F.pad(cm, (0, 0, 0, pad))
+    # the ssm heads over the model axis, as the reference's constraints
+    xs = constrain(xs, "dp", "mdl", None, None)
+    a_s = constrain(a_s, "dp", "mdl", None)
+    dt_s = constrain(dt_s, "dp", "mdl", None)
     y = ops.ssm_scan(xs, a_s, dt_s, bm, cm, chunk=chunk, impl=impl)
     y = y[:, :, :s].transpose(1, 2) + p.D[:, None] * xh.float()
     return _gated_out(p, y.reshape(b, s, d_inner), z, x_in.dtype, impl)

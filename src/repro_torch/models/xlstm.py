@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, frozen, rmsnorm
+from repro_torch.models.sharding import along_sequence, constrain
 
 #: chunk length of the chunked mLSTM prefill
 MLSTM_CHUNK = 256
@@ -154,7 +155,13 @@ def _mlstm_cell_chunked(q, k, v, log_i, log_f,
 
 def _conv_silu(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv along the sequence, then SiLU: the taps added
-    in order in x's type, as the reference's ``sum(...)``."""
+    in order in x's type, as the reference's ``sum(...)`` (on a DTensor,
+    each rank's shard with the sequence whole:
+    :func:`~repro_torch.models.sharding.along_sequence`)."""
+    return along_sequence(_conv_silu_local, xb, w)
+
+
+def _conv_silu_local(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     width, s = w.shape[0], xb.shape[1]
     pad = F.pad(xb, (0, 0, width - 1, 0))
     return F.silu(sum(pad[:, i:i + s, :] * w[i] for i in range(width)))
@@ -277,6 +284,9 @@ def _slstm_step(p: SLSTM, n_heads: int, carry: SState,
     # per-head scalar stabiliser: the max over the head dim
     log_f = F.logsigmoid(ft)
     m_new = torch.maximum(log_f + m[..., None], it).amax(dim=-1)  # (B,H)
+    # on a DTensor, the max reduced across ranks here (a partial max
+    # cannot meet the gates' partial sums in some DTensor releases)
+    m_new = constrain(m_new, "dp", None)
     i_g = torch.exp(it - m_new[..., None])
     f_g = torch.exp(log_f + m[..., None] - m_new[..., None])
     c_new = f_g * c + i_g * torch.tanh(zt)

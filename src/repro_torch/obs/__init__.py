@@ -2,7 +2,10 @@
 enabled by injection or ``REPRO_TRACE=<path>``), the labeled metrics
 registry (:mod:`repro_torch.obs.metrics`) and per-node power / frequency
 / job timelines from simulation results (:mod:`repro_torch.obs.timeline`,
-imported by its consumers: it imports ``repro_torch.core``)."""
+imported by its consumers: it imports ``repro_torch.core``) and the
+``python -m repro_torch.obs regress`` BENCH artifact differ
+(:mod:`repro_torch.obs.regress`, imported by its consumers as the
+reference's is)."""
 
 from . import trace
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,

@@ -222,7 +222,12 @@ named = {{"repro_torch.configs.llama3_8b", "repro_torch.kernels.rmsnorm",
          "repro_torch.cluster.cli", "repro_torch.cluster.__main__",
          "repro_torch.diff", "repro_torch.diff.relax",
          "repro_torch.diff.softsim", "repro_torch.diff.optimize",
-         "repro_torch.diff.train", "repro_torch.diff.__main__"}}
+         "repro_torch.diff.train", "repro_torch.diff.__main__",
+         "repro_torch.obs.regress", "repro_torch.obs.__main__",
+         "repro_torch.core.hlo", "repro_torch.core.hlo_extract",
+         "repro_torch.core.roofline", "repro_torch.launch.mesh",
+         "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+         "repro_torch.models.sharding", "repro_torch.kernels.sharded"}}
 assert named <= set(names), sorted(named - set(names))
 import chip_smoke
 import flash_probe
@@ -239,8 +244,8 @@ assert not bad, bad
 
 def test_port_imports_neither_jax_nor_reference():
     """Walk the package in a fresh interpreter: importing every module
-    (the LM path's, the sweep front end's and the differentiable
-    layer's among them),
+    (the LM path's, the sweep front end's, the differentiable layer's and
+    the dry run's among them),
     ``chip_smoke.py``, ``flash_probe.py``, ``ssm_probe.py``,
     ``ssm_bwd_probe.py``, ``rmsnorm_probe.py`` and ``profiler_probe.py``
     loads no ``jax`` and no ``repro``."""
