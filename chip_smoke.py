@@ -8,10 +8,12 @@ port's two paths:
 
 * the batched wave engine, ``TorchBatchSimulator``, at full width (the
   NPB IS class-C analogue on 64 heterogeneous nodes, 1024 cluster
-  bounds, three policies), a padded mixed-shape batch and the ILP
-  policies, each run in one launch of the whole-row kernel
-  (``wave_run``), checked against the plain version and the event
-  simulator's golden makespans; then the per-wave "step" path
+  bounds, four policies, ``learned``'s MLP among them), a padded
+  mixed-shape batch and the ILP policies, each run in one launch of the
+  whole-row kernel (``wave_run``), checked against the plain version
+  and the event simulator's golden makespans; the full-width rows split
+  over four shards (``shard_devices``, four streams of the one card),
+  bit-equal to one device; then the per-wave "step" path
   (``power_step`` and ``waterfill`` once a wave) on the same rows as the
   yardstick;
 * the sweep front end on those rows and on the mixed family
@@ -40,8 +42,8 @@ port's two paths:
   7, 9 and 12 W against the ILP (300 steps, float32); the policy
   trainer on its 20 scenarios for 3 steps (the bundled checkpoint took
   150), held against the CPU; the trainer's CLI in its own process, and
-  ``"learned"`` with the checkpoint it wrote through the sweep on the
-  per-wave ``power_step`` path, against ``impl="plain"``;
+  ``"learned"`` with the checkpoint it wrote through the sweep in
+  ``wave_run``'s learned mode, against ``impl="plain"``;
 * one LM step's job graph (``dryrun_job_graph``): llama3-8b x train_4k
   dry-run on the 256-rank fake mesh in a child process on the CPU
   (``repro_torch.launch.dryrun``, 2 of 32 layers), its collective
@@ -540,6 +542,15 @@ FULL_WIDTH_POLICIES = ("equal-share", "oracle", "heuristic")
 #: of the script's time limit); its kernel rows are held against plain in
 #: ``padded``, ``step_path`` and ``trace_corpus``.
 FULL_WIDTH_PLAIN = ("equal-share", "oracle")
+#: The policies of the whole-row kernel's full-width checks: the three
+#: above (which the sweep and service phases take on) and ``learned``
+#: (its ``wave_run`` mode), whose 1024 rows are all held against the
+#: plain version on this card.
+FULL_WIDTH_KERNEL = FULL_WIDTH_POLICIES + ("learned",)
+#: Operations of the learned rule a running lane and wave: the MLP's 400
+#: multiply-adds (8 x 16 + 16 x 16 + 16) as 800, its 32 tanh, one exp,
+#: the 8 features and the softmax split (~12).
+LEARNED_LANE_OPS = 2 * 400 + 32 + 1 + 12
 
 
 def _full_width_case():
@@ -591,13 +602,33 @@ def _delta(launches, before):
     return {k: launches[k] - before[k] for k in launches}
 
 
-def _wave_run_bound(sim, stats) -> dict:
+def _running_lane_waves(results) -> int:
+    """Waves summed over the lanes running in them, from a run's stamps:
+    a row's waves start at its distinct event times (no bound schedule
+    here), and a lane runs job j in each wave that starts in
+    [start_j, end_j)."""
+    import numpy as np
+
+    total = 0
+    for r in results:
+        keys = list(r.job_starts)
+        start = np.array([r.job_starts[k] for k in keys])
+        end = np.array([r.job_ends[k] for k in keys])
+        t = np.unique(np.concatenate([start, end]))
+        total += int((np.searchsorted(t, end)
+                      - np.searchsorted(t, start)).sum())
+    return total
+
+
+def _wave_run_bound(sim, stats, results=None) -> dict:
     """The least time the card could take for one whole-row run: each
     input read once and each output written once (geometry and tables
     once, shared or not; the state and the policy's tensors in and out),
     and the operations this run's waves need: per lane a wave, a compare
     and a select per LUT state and ~15 more, plus ~8 per water-fill pass
-    (two passes) where the policy water-fills."""
+    (two passes) where the policy water-fills; for ``learned``, the MLP
+    and the split on each lane running in a wave (``results``' stamps
+    count them: :func:`_running_lane_waves`)."""
     import numpy as np
 
     from repro_torch.backends.policies import kernel_mode
@@ -615,15 +646,20 @@ def _wave_run_bound(sim, stats) -> dict:
              + 4 * sum(np.asarray(v).size
                        for v in sim.policy.init_state(sim).values()))
     nbytes = inputs + 2 * state + 8 * b       # + the loop counts out
-    fills = kernel_mode(sim.policy) in ("redistribute", "heuristic")
+    mode = kernel_mode(sim.policy)
+    fills = mode in ("redistribute", "heuristic")
     per_lane = 2 * s + 15 + (16 if fills else 0)
-    return bound(nbytes, stats.row_waves * n * per_lane, FP32_OPS_PER_S)
+    ops = stats.row_waves * n * per_lane
+    if mode == "learned":
+        ops += LEARNED_LANE_OPS * _running_lane_waves(results)
+    return bound(nbytes, ops, FP32_OPS_PER_S)
 
 
 def phase_full_width(torch, launches):
     """The main path at full width: 1024 bounds x IS class C, N=64, each
-    policy in one launch of the whole-row kernel; then the plain path on
-    equal-share's 1024 rows as the yardstick.  Returns the main path's
+    policy of :data:`FULL_WIDTH_KERNEL` in one launch of the whole-row
+    kernel; then the plain path on equal-share's and ``learned``'s 1024
+    rows on this card (0.0 on every row).  Returns the main path's
     launch counts, the kernel's numbers and equal-share's run."""
     import multiprocessing as mp
 
@@ -643,7 +679,7 @@ def phase_full_width(torch, launches):
         for key in launches:
             launches[key] = 0
         runs = {}
-        for policy in FULL_WIDTH_POLICIES:
+        for policy in FULL_WIDTH_KERNEL:
             before = dict(launches)
             t0 = time.perf_counter()
             sim = TorchBatchSimulator(graph, specs, bounds, policy,
@@ -675,6 +711,11 @@ def phase_full_width(torch, launches):
                                        dt=0.05, latency_s=0.05,
                                        impl="plain").run()
         eq_plain_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        learned_plain = TorchBatchSimulator(graph, specs, bounds, "learned",
+                                            dt=0.05, latency_s=0.05,
+                                            impl="plain").run()
+        learned_plain_wall = time.perf_counter() - t0
         status, plain = queue.get(timeout=1800)
         worker.join(timeout=60)
     finally:
@@ -683,7 +724,7 @@ def phase_full_width(torch, launches):
             worker.join()
     require(status == "ok", f"plain full-width worker failed:\n{plain}")
     out = {"abs_diff": 0.0}
-    for policy in FULL_WIDTH_POLICIES:
+    for policy in FULL_WIDTH_KERNEL:
         wall, sim, res = runs[policy]
         st = sim.stats
         plain_wall, plain_rows = plain.get(policy, (None, []))
@@ -706,6 +747,22 @@ def phase_full_width(torch, launches):
             fields = dict(plain_all_rows_wall_s=eq_plain_wall,
                           max_rel_vs_plain_all_rows=rel_p,
                           max_abs_diff_vs_plain_all_rows=abs_p)
+        if policy == "learned":
+            rel, abs_diff = _compare_results(res, learned_plain,
+                                             "full-width learned kernel "
+                                             "vs plain (all rows)")
+            require(abs_diff == 0.0, f"full-width learned: max abs diff "
+                                     f"{abs_diff} vs impl='plain'")
+            out["abs_diff"] = max(out["abs_diff"], abs_diff)
+            lane_waves = _running_lane_waves(res)
+            out["learned"] = dict(
+                ms=st.kernel_ms, plain_ms=1e3 * learned_plain_wall,
+                lane_waves=lane_waves,
+                **_wave_run_bound(sim, st, res))
+            plain_wall, plain_rows = learned_plain_wall, learned_plain
+            fields = dict(running_lane_waves=lane_waves,
+                          bound_ms=out["learned"]["bound_ms"],
+                          bound_by=out["learned"]["bound_by"])
         if policy == "heuristic":
             one_us = 1e3 * one.stats.kernel_ms / one.stats.waves
             fields = dict(one_row_kernel_ms=one.stats.kernel_ms,
@@ -714,6 +771,7 @@ def phase_full_width(torch, launches):
                           latency_floor_ms=st.waves * one_us / 1e3)
             out["latency_floor_ms_heuristic"] = fields["latency_floor_ms"]
         out[f"ms_{policy}"] = st.kernel_ms
+        out[f"wall_{policy}"] = wall
         out.setdefault("results", {})[policy] = res
         emit("full_width", policy=policy, path=st.path, rows=len(res),
              dims=dims, bound_w=[float(bounds[0]), float(bounds[-1])],
@@ -726,6 +784,71 @@ def phase_full_width(torch, launches):
              max_abs_diff_vs_plain=abs_diff, plain_rows=len(plain_rows),
              plain_wall_s=plain_wall, **fields)
     return main_launches, out
+
+
+#: ``sharded_rows``: the policies whose full-width buckets run split, and
+#: the shards (one card: ``visible_devices`` patched to cuda:0 four times)
+SHARDED_POLICIES = ("equal-share", "heuristic", "learned")
+SHARDED_DEVICES = 4
+
+
+def phase_sharded_rows(torch, launches, fw):
+    """Rows split over several devices (``shard_devices``) on the one
+    card: the engine's ``visible_devices`` patched to ``cuda:0`` four
+    times, each policy of :data:`SHARDED_POLICIES` at full width (1024
+    rows) split four ways, one ``wave_run`` launch a shard on a stream of
+    its own (the counts set to 0 just before each run and read after),
+    every result equal to ``full_width``'s one-device run bit for bit;
+    both walls and each run's longest shard's kernel time.  A shard that
+    fails to launch fails the run.  Returns the launch counts."""
+    from repro_torch import TorchBatchSimulator
+    from repro_torch.backends import engine
+
+    graph, specs, bounds, _ = _full_width_case()
+    visible = engine.visible_devices
+    engine.visible_devices = lambda device=None: \
+        [torch.device("cuda", 0)] * SHARDED_DEVICES
+    counts = {}
+    try:
+        for policy in SHARDED_POLICIES:
+            for key in launches:
+                launches[key] = 0
+            t0 = time.perf_counter()
+            sim = TorchBatchSimulator(graph, specs, bounds, policy,
+                                      dt=0.05, latency_s=0.05)
+            pending = sim.dispatch()
+            res = sim.fetch(pending)
+            wall = time.perf_counter() - t0
+            got = dict(launches)
+            require(sim.n_shards == SHARDED_DEVICES
+                    and pending.profile.devices == SHARDED_DEVICES
+                    and sim.stats.path == "cuda"
+                    and got == {"power_step": 0, "waterfill": 0,
+                                "wave_run": SHARDED_DEVICES},
+                    f"sharded_rows {policy}: {sim.n_shards} shards, "
+                    f"launches {got} on path {sim.stats.path}")
+            streams = {id(sh.stream) for sh in pending.shards}
+            require(len(streams) == SHARDED_DEVICES,
+                    f"sharded_rows {policy}: {len(streams)} streams")
+            one = fw["results"][policy]
+            rel, abs_diff = _compare_results(res, one, f"sharded_rows "
+                                             f"{policy} vs one device")
+            require(abs_diff == 0.0 and all(a == b for a, b in
+                                            zip(res, one)),
+                    f"sharded_rows {policy}: not bit-equal to one device "
+                    f"(max abs diff {abs_diff})")
+            counts[policy] = got
+            emit("sharded_rows", policy=policy, rows=len(res),
+                 shards=sim.n_shards, launches=got, wall_s=wall,
+                 one_device_wall_s=fw[f"wall_{policy}"],
+                 kernel_ms_longest_shard=sim.stats.kernel_ms,
+                 one_device_kernel_ms=fw[f"ms_{policy}"],
+                 shard_kernel_ms=[sh.events[0].elapsed_time(sh.events[1])
+                                  for sh in pending.shards],
+                 max_abs_diff_vs_one_device=abs_diff)
+    finally:
+        engine.visible_devices = visible
+    return {k: sum(c[k] for c in counts.values()) for k in launches}
 
 
 def phase_profile(torch):
@@ -1065,7 +1188,7 @@ def _planned(s):
         return "vector", "lanes(300>256)", None
     if s.policy == "countdown":
         return "event", "no-vector-policy(countdown)", None
-    return "torch", None, "step" if s.policy == "learned" else "cuda"
+    return "torch", None, "cuda"
 
 
 def phase_sweep_mixed(torch, launches):
@@ -1107,9 +1230,10 @@ def phase_sweep_mixed(torch, launches):
                     f"sweep_mixed {rec.bucket}: path {paths[rec.bucket]}, "
                     f"expected {path}")
     n_cuda = sum(p == "cuda" for p in paths.values())
-    require(got["wave_run"] == n_cuda and got["power_step"] > 0
-            and got["waterfill"] == 0,
-            f"sweep_mixed: launches {got}, {n_cuda} wave_run buckets")
+    require(n_cuda == len(paths) and got["wave_run"] == n_cuda
+            and got["power_step"] == 0 and got["waterfill"] == 0,
+            f"sweep_mixed: launches {got}, {n_cuda} of {len(paths)} "
+            f"buckets on wave_run")
     torch_recs = [(a, b) for a, b in zip(sweep.records, plain.records)
                   if a.backend == "torch"]
     _, abs_diff = _compare_results([a.result for a, _ in torch_recs],
@@ -1315,10 +1439,10 @@ def phase_service_mixed(torch, launches, cells, sweep, assignments):
     shared): every record on the backend, with the fallback reason, of
     ``SweepEngine(executor="torch")``'s record of the same cell; torch
     records equal to it (0.0; ``learned``'s within TOL, its lane sums
-    rounding with the lane padding), vector and event records inside the event
-    simulator's envelope of it (2 dt, 1% energy); one wave_run launch a
-    ``"cuda"`` bucket, ``learned`` on the ``"step"`` path.  Returns the
-    launch counts."""
+    over the service's padded lanes held apart), vector and event records
+    inside the event simulator's envelope of it (2 dt, 1% energy); one
+    wave_run launch a bucket, ``learned``'s too, and no per-wave launch.
+    Returns the launch counts."""
     from repro_torch.serving import SweepService
 
     for key in launches:
@@ -1360,17 +1484,19 @@ def phase_service_mixed(torch, launches, cells, sweep, assignments):
                                    "service_mixed vs sweep_mixed")
     require(abs_diff == 0.0, f"service_mixed: max abs diff {abs_diff} vs "
                              f"the sweep's records")
-    # learned's MLP sums its lanes in torch's own order, which depends on
-    # the lane count: a bucket the sweep ran in the shared layout (exact
-    # N) and the service padded (pow2 N) round apart, within TOL
+    # a bucket the sweep ran in the shared layout (exact N) and the
+    # service padded (pow2 N): learned's lane sums take the kernel's warp
+    # order, in which zero lanes add nothing; held within TOL and reported
     learned_rel, learned_abs = _compare_results(
         [a for a, _ in learned], [b for _, b in learned],
         "service_mixed learned vs sweep_mixed")
     n_cuda = sum(b.path == "cuda" for b in prof.buckets)
-    require(got["wave_run"] == n_cuda and got["power_step"] > 0
-            and got["waterfill"] == 0 and prof.compiles == 0,
-            f"service_mixed: launches {got}, {n_cuda} wave_run buckets, "
-            f"{prof.compiles} builds")
+    require(n_cuda == len(prof.buckets) and got["wave_run"] == n_cuda
+            and got["power_step"] == 0 and got["waterfill"] == 0
+            and prof.compiles == 0,
+            f"service_mixed: launches {got}, {n_cuda} of "
+            f"{len(prof.buckets)} buckets on wave_run, {prof.compiles} "
+            f"builds")
     st = service.stats()
     emit("service_mixed", scenarios=len(cells), wall_s=wall, launches=got,
          backends={b: sum(r.backend == b for r in records)
@@ -2435,7 +2561,8 @@ def _diff_train(torch, device):
 def _diff_learned_sweep(torch, launches, ckpt):
     """``"learned"`` with the CLI's checkpoint through
     ``SweepEngine(executor="torch")`` on Listing 2 and the held-out
-    layered family at three bounds each, against ``impl="plain"``."""
+    layered family at three bounds each (its buckets on ``wave_run``'s
+    learned mode, no per-wave launch), against ``impl="plain"``."""
     import os
 
     import numpy as np
@@ -2475,7 +2602,8 @@ def _diff_learned_sweep(torch, launches, ckpt):
         require(not sw.failures and all(r.backend == "torch"
                                         for r in sw.records),
                 f"diff sweep {name}: {sw.backend_summary()}")
-    require(counts["power_step"] > 0 and counts["wave_run"] == 0,
+    require(counts["wave_run"] > 0 and counts["power_step"] == 0
+            and counts["waterfill"] == 0,
             f"diff sweep: launches {counts}")
     rel, diff = _compare_results([r.result for r in sweep.records],
                                  [r.result for r in plain.records],
@@ -4920,6 +5048,7 @@ def sim_phases(torch, device, counters, smi):
     worst, times, bounds = phase_kernel(torch, device)
     _zero(counters)
     main_launches, fw = phase_full_width(torch, ps.LAUNCHES)
+    sharded = phase_sharded_rows(torch, ps.LAUNCHES, fw)
     step_launches, step_ms = phase_step_path(torch, ps.LAUNCHES,
                                              fw["equal_share"])
     phase_profile(torch)
@@ -4954,9 +5083,15 @@ def sim_phases(torch, device, counters, smi):
          "launches_trace_corpus": trace_corpus["wave_run"],
          "launches_cluster": cluster["wave_run"],
          "launches_dryrun_job_graph": dryrun["wave_run"],
+         "launches_diff": diff["wave_run"],
+         "launches_sharded_rows": sharded["wave_run"],
          "max_abs_err": max(fw["abs_diff"], padded_diff, ilp_diff),
          "ms": fw["ms"], "ms_oracle": fw["ms_oracle"],
          "ms_heuristic": fw["ms_heuristic"],
+         "ms_learned": fw["learned"]["ms"],
+         "plain_ms_learned": fw["learned"]["plain_ms"],
+         "bound_ms_learned": fw["learned"]["bound_ms"],
+         "bound_by_learned": fw["learned"]["bound_by"],
          "latency_floor_ms_heuristic": fw["latency_floor_ms_heuristic"],
          "plain_ms": fw["plain_ms"], "step_ms": step_ms,
          "timing": "equal-share at full width: ms is the kernel (CUDA "
@@ -4975,9 +5110,9 @@ def sim_phases(torch, device, counters, smi):
          "launches_diff": diff["power_step"],
          "note": per_wave + "; launches_sweep_mixed, "
                             "launches_service_mixed and launches_diff "
-                            "the learned policy's, in phases sweep_mixed, "
-                            "service_mixed and diff (a checkpoint the "
-                            "trainer's CLI wrote on the card)",
+                            "count the per-wave launches of those phases: "
+                            "0, every policy (learned too) runs on "
+                            "wave_run",
          "max_abs_err": worst["power_step"][0],
          "ms": times["power_step_ms"],
          "plain_ms": times["power_step_plain_ms"],

@@ -60,9 +60,10 @@ decided by time (``t_fin <= delta``), never by a residual-work epsilon.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -139,17 +140,27 @@ _FETCHED = ("steps", "makespan", "energy", "peak", "over_t", "start_t",
 
 
 @dataclass
-class PendingBatch:
-    """A dispatched batch: its state on the device, what the launch
-    returns, and its profile (:meth:`TorchBatchSimulator.fetch` fills in
-    the fields after the dispatch)."""
+class ShardRun:
+    """One shard of a dispatched batch: its rows' state on its device,
+    what its launch returns, and the stream it ran on."""
 
+    device: torch.device
     st: State
-    profile: BucketProfile
+    stream: Optional[torch.cuda.Stream] = None
     iters: Optional[torch.Tensor] = None   # wave_run's per-row counts
     events: Optional[Tuple] = None         # (start, end) CUDA events
     waves: int = 0                         # lockstep iterations
     syncs: int = 0                         # lockstep liveness checks
+
+
+@dataclass
+class PendingBatch:
+    """A dispatched batch: its shards (one unless the rows were split
+    over several devices) and its profile (:meth:`TorchBatchSimulator.
+    fetch` fills in the fields after the dispatch)."""
+
+    profile: BucketProfile
+    shards: List[ShardRun] = field(default_factory=list)
     #: the pinned host buffers the uploads were copied from, kept alive
     #: until :meth:`TorchBatchSimulator.fetch` returns
     staged: Tuple[torch.Tensor, ...] = ()
@@ -197,6 +208,28 @@ def resolve_impl(impl: Optional[str], device: torch.device,
     return impl
 
 
+def visible_devices(device=None) -> List[torch.device]:
+    """The devices a batch's rows may be split over, the counterpart of
+    the reference's ``jax.devices()``: every card
+    (``torch.cuda.device_count()``) for a CUDA engine (``None`` is the
+    card), the engine's one device otherwise."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def shard_count(requested: Optional[int], n_rows: int, device=None) -> int:
+    """Resolve a shard-device request against the visible devices
+    (:func:`visible_devices` of ``device``) and the batch size: ``None``
+    means every visible device, and a batch never shards wider than its
+    row count (a 3-row batch on 8 devices runs 3-wide)."""
+    avail = len(visible_devices(device))
+    n = avail if requested is None else min(int(requested), avail)
+    return max(1, min(n, n_rows))
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card: it raises when CUDA is missing rather
     than running on the CPU.  Pass ``device="cpu"`` for the CPU."""
@@ -206,6 +239,12 @@ def resolve_device(device) -> torch.device:
                                "the engine on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _on(stream):
+    """Make ``stream`` current for its device (no-op for ``None``)."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
 
 
 # ------------------------------------------------------------ state ops
@@ -256,7 +295,8 @@ def _settle_step(ctx: Ctx, st: State) -> None:
 
 
 class TorchBatchSimulator:
-    """Batched wave simulator on one device, B scenario rows at once.
+    """Batched wave simulator, B scenario rows at once (on one device, or
+    split over several: ``shard_devices``).
 
     The constructor's fixed-structure batch (one graph, one cluster, B
     bounds, one policy) and :meth:`padded`'s mixed-shape stacked batch,
@@ -268,7 +308,10 @@ class TorchBatchSimulator:
     ``impl`` picks the engine path, ``None``/``"plain"``/``"step"``/
     ``"cuda"`` (:func:`resolve_impl`; :attr:`stats` names the one that
     ran).  ``check_every`` is the number of lockstep iterations between
-    the host's checks for live rows.
+    the host's checks for live rows.  ``shard_devices`` splits the rows
+    over that many of the visible devices (:func:`visible_devices`;
+    ``None`` = all of them, clamped to the row count): on one device the
+    batch runs unsplit.
     """
 
     def __init__(self, graph: JobDependencyGraph, specs: Sequence[NodeSpec],
@@ -278,7 +321,8 @@ class TorchBatchSimulator:
                  max_steps: int = 1_000_000,
                  bound_schedules: Optional[Sequence] = None,
                  device=None, impl: Optional[str] = None,
-                 check_every: int = 64, **policy_kwargs):
+                 check_every: int = 64,
+                 shard_devices: Optional[int] = None, **policy_kwargs):
         graph.topological_order()          # validates the DAG
         if len(specs) != len(graph.nodes):
             raise ValueError("one NodeSpec per graph node required")
@@ -286,7 +330,7 @@ class TorchBatchSimulator:
         self.specs = list(specs)
         self._setup_run_params(bounds, policy, dt, latency_s, max_steps,
                                bound_schedules, device, impl, check_every,
-                               policy_kwargs)
+                               shard_devices, policy_kwargs)
         b = self.n_rows
         arrays = build_graph_arrays(graph, self.specs)
         self._init_rows(
@@ -307,6 +351,7 @@ class TorchBatchSimulator:
                pad_dims: Optional[Tuple[int, int, int, int, int]] = None,
                device=None, impl: Optional[str] = None,
                check_every: int = 64,
+               shard_devices: Optional[int] = None,
                **policy_kwargs) -> "TorchBatchSimulator":
         """A mixed-shape batch: row ``b`` runs ``items[b]`` under
         ``bounds[b]``; ``pad_dims`` is the ``(N, J, K, D, S)`` envelope
@@ -317,7 +362,7 @@ class TorchBatchSimulator:
         self.specs = None
         self._setup_run_params(bounds, policy, dt, latency_s, max_steps,
                                bound_schedules, device, impl, check_every,
-                               policy_kwargs)
+                               shard_devices, policy_kwargs)
         arrays = stack_graph_arrays(items, pad_dims)
         self._init_rows(
             arrays, stacked=True,
@@ -341,7 +386,7 @@ class TorchBatchSimulator:
 
     def _setup_run_params(self, bounds, policy, dt, latency_s, max_steps,
                           bound_schedules, device, impl, check_every,
-                          policy_kwargs) -> None:
+                          shard_devices, policy_kwargs) -> None:
         if dt <= 0:
             raise ValueError("dt must be positive")
         if check_every < 1:
@@ -353,6 +398,11 @@ class TorchBatchSimulator:
         self.latency_s = float(latency_s)
         self.max_steps = int(max_steps)
         self.device = resolve_device(device)
+        self.n_shards = shard_count(shard_devices, len(self.bounds),
+                                    self.device)
+        #: the device of each shard, in row order
+        self.devices = ([self.device] if self.n_shards == 1 else
+                        visible_devices(self.device)[:self.n_shards])
         self.check_every = int(check_every)
         self._sched = pad_bound_schedules(bound_schedules, len(self.bounds))
         if isinstance(policy, TorchPolicy):
@@ -374,50 +424,69 @@ class TorchBatchSimulator:
     def n_nodes(self) -> int:
         return self.arrays.n_nodes
 
-    def _tensor(self, a, dtype) -> torch.Tensor:
-        return self._upload(torch.as_tensor(np.asarray(a)).to(dtype))
+    def _tensor(self, a, dtype, device=None) -> torch.Tensor:
+        return self._upload(torch.as_tensor(np.asarray(a)).to(dtype), device)
 
-    def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        """A host tensor on the engine's device.  To the card it goes
-        from pinned memory without blocking: a copy from pageable memory
-        would wait for every kernel queued on the stream, so a batch
-        dispatched behind another would wait for that one's run."""
+    def _upload(self, t: torch.Tensor, device=None) -> torch.Tensor:
+        """A host tensor on ``device`` (the engine's by default).  To the
+        card it goes from pinned memory without blocking, on the current
+        stream: a copy from pageable memory would wait for every kernel
+        queued on the stream, so a batch dispatched behind another would
+        wait for that one's run."""
+        device = self.device if device is None else device
         t = t.contiguous()
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
         pinned = t.pin_memory()
         self._staged.append(pinned)
-        return pinned.to(self.device, non_blocking=True)
+        return pinned.to(device, non_blocking=True)
 
-    def _ctx(self) -> Ctx:
+    def _ctx(self, rows: Optional[np.ndarray] = None, device=None,
+             tab: Optional[StepTables] = None) -> Ctx:
+        """The geometry of the batch rows ``rows`` (all by default) on
+        ``device``: the stacked layout takes those rows of every leaf,
+        the shared layout expands its one graph and cluster over them.
+        ``tab`` is the host's :class:`StepTables`, built once a dispatch
+        when given."""
         a = self.arrays
-        b = self.n_rows
+        rows = np.arange(self.n_rows) if rows is None else rows
+        b = len(rows)
         # the kernel loop indexes with int32; torch's gathers take int64
         index = torch.int32 if self.impl == "cuda" else torch.int64
 
-        def rows(x, dtype):
-            t = self._tensor(x, dtype)
-            return t if self.stacked else t.unsqueeze(0).expand(
-                b, *t.shape)
+        def put(x, dtype):
+            if self.stacked:
+                return self._tensor(np.asarray(x)[rows], dtype, device)
+            t = self._tensor(x, dtype, device)
+            return t.unsqueeze(0).expand(b, *t.shape)
 
-        tab = StepTables(*map(self._upload, step_tables(a.table, "cpu",
-                                                        FLOAT)))
+        if tab is None:
+            tab = step_tables(a.table, "cpu", FLOAT)
+        if self.stacked:
+            take = torch.from_numpy(np.asarray(rows, np.int64))
+            tab = StepTables(*(t.index_select(0, take) for t in tab))
+        tab = StepTables(*(self._upload(t, device) for t in tab))
         return Ctx(tab=tab,
-                   node_seq=rows(a.node_seq, index),
-                   deps_pad=rows(a.deps_pad, index),
-                   work_pad=rows(a.work_pad, FLOAT),
-                   rho_pad=rows(a.rho_pad, FLOAT),
-                   n_active=self._tensor(self.n_active, index),
-                   dt=self._tensor(self.dt, FLOAT),
+                   node_seq=put(a.node_seq, index),
+                   deps_pad=put(a.deps_pad, index),
+                   work_pad=put(a.work_pad, FLOAT),
+                   rho_pad=put(a.rho_pad, FLOAT),
+                   n_active=self._tensor(self.n_active[rows], index, device),
+                   dt=self._tensor(self.dt, FLOAT, device),
                    impl="plain" if self.impl == "plain" else "cuda")
 
-    def _state0(self) -> State:
-        b, n, j = self.n_rows, self.n_nodes, self.n_jobs_total
-        dev = self.device
+    def _state0(self, rows: Optional[np.ndarray] = None,
+                device=None) -> State:
+        """The loop's initial state for the batch rows ``rows`` (all by
+        default) on ``device``."""
+        rows = np.arange(self.n_rows) if rows is None else rows
+        dev = self.device if device is None else device
+        b, n, j = len(rows), self.n_nodes, self.n_jobs_total
         completed = np.zeros((b, j + 1), dtype=bool)
         completed[:, j] = True
         # phantom job slots of a padded row are born completed
-        completed[:, :j] |= np.arange(j)[None, :] >= self.n_jobs_row[:, None]
+        completed[:, :j] |= \
+            np.arange(j)[None, :] >= self.n_jobs_row[rows][:, None]
 
         def zeros(dtype=FLOAT):
             return torch.zeros(b, dtype=dtype, device=dev)
@@ -426,8 +495,8 @@ class TorchBatchSimulator:
             ptr=torch.zeros(b, n, dtype=torch.int64, device=dev),
             running=torch.zeros(b, n, dtype=torch.bool, device=dev),
             remaining=torch.zeros(b, n, dtype=FLOAT, device=dev),
-            completed=self._tensor(completed, torch.bool),
-            row_t=zeros(), bound=self._tensor(self.bounds, FLOAT),
+            completed=self._tensor(completed, torch.bool, dev),
+            row_t=zeros(), bound=self._tensor(self.bounds[rows], FLOAT, dev),
             sched_idx=zeros(torch.int64), done=zeros(torch.bool),
             stalled=zeros(torch.bool), settled=zeros(torch.bool),
             energy=zeros(), peak=zeros(), over_t=zeros(),
@@ -436,6 +505,15 @@ class TorchBatchSimulator:
                                device=dev),
             end_t=torch.full((b, j + 1), math.nan, dtype=FLOAT, device=dev),
             tick_count=zeros(torch.int64), steps=zeros(torch.int64))
+
+    def _shard_rows(self) -> List[np.ndarray]:
+        """Each shard's batch rows: the row axis padded to a multiple of
+        the shard count with replicas of the last row (the reference's
+        ``_pad_rows``), cut into contiguous blocks."""
+        b = self.n_rows
+        pad = (-b) % self.n_shards
+        index = np.concatenate([np.arange(b), np.full(pad, b - 1)])
+        return np.split(index, self.n_shards)
 
     # ------------------------------------------------------------- the loop
     def _wave(self, ctx: Ctx, st: State, pol, sched_t, sched_w):
@@ -533,56 +611,48 @@ class TorchBatchSimulator:
         :meth:`fetch`.
 
         On the ``"cuda"`` path this is one asynchronous ``wave_run``
-        launch between two CUDA events, and it returns without waiting
-        for the card.  The ``"step"`` and ``"plain"`` paths run their
-        lockstep loop here, which syncs with the host every
-        ``check_every`` iterations, so their dispatch runs (nearly) to
-        completion.  ``profile.compiled`` is true when this dispatch
-        built the kernel library (the per-wave paths build it at their
-        first launch).
+        launch a shard between two CUDA events, and it returns without
+        waiting for the card.  The ``"step"`` and ``"plain"`` paths run
+        their lockstep loop here, shard after shard, which syncs with the
+        host every ``check_every`` iterations, so their dispatch runs
+        (nearly) to completion.  ``profile.compiled`` is true when this
+        dispatch built the kernel library (the per-wave paths build it at
+        their first launch).
 
-        Everything here works from the engine's own ``device``: the
-        launches, the events and the stream they are recorded on, never
+        Everything here works from the shards' own devices: the
+        launches, the events and the streams they are recorded on, never
         the calling thread's current device, so a dispatcher thread and
-        a collector thread may each take one side of a batch."""
+        a collector thread may each take one side of a batch.  One shard
+        runs on its device's current stream; split rows run each on a
+        stream of its own, so the shards overlap even on one card."""
         from repro_torch.kernels._build import claim_build, library_loaded
 
-        prof = BucketProfile(rows=self.n_rows, path=self.impl)
+        prof = BucketProfile(rows=self.n_rows, devices=self.n_shards,
+                             path=self.impl)
         t0 = time.perf_counter()
         self._staged = []
-        pol = {k: self._tensor(v, torch.bool if np.asarray(v).dtype == bool
-                               else FLOAT)
-               for k, v in self.policy.init_state(self).items()}
-        ctx = self._ctx()
-        st = self._state0()
-        if self._sched is not None:
-            sched_t, sched_w = (self._tensor(x, FLOAT) for x in self._sched)
-        else:
-            sched_t = torch.full((self.n_rows, 1), BIG_TIME, dtype=FLOAT,
-                                 device=self.device)
-            sched_w = torch.zeros_like(sched_t)
-        prof.cache_key = (tuple(ctx.work_pad.shape),
-                          tuple(ctx.node_seq.shape), self.impl,
-                          self.policy.name)
+        pol_host = self.policy.init_state(self)
+        tab_host = step_tables(self.arrays.table, "cpu", FLOAT)
+        shards = []
+        for rows, dev in zip(self._shard_rows(), self.devices):
+            stream = None
+            if dev.type == "cuda":
+                stream = (torch.cuda.current_stream(dev)
+                          if self.n_shards == 1 else torch.cuda.Stream(dev))
+            with _on(stream):
+                shards.append(self._pack(rows, dev, stream, pol_host,
+                                         tab_host))
+        prof.cache_key = (tuple(shards[0][1].work_pad.shape),
+                          tuple(shards[0][1].node_seq.shape), self.impl,
+                          self.n_shards, self.policy.name)
         t1 = time.perf_counter()
         prof.pack_s = t1 - t0
         unbuilt = self.impl != "plain" and not library_loaded()
-        pending = PendingBatch(st=st, profile=prof)
-        stream = None
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            pending.events = tuple(torch.cuda.Event(enable_timing=True)
-                                   for _ in range(2))
-            pending.events[0].record(stream)
-        if self.impl == "cuda":
-            pending.iters = wave_run_cuda(
-                ctx, st, pol, sched_t, sched_w, mode=kernel_mode(self.policy),
-                dt=self.dt, max_steps=self.max_steps)
-        else:
-            pending.waves, pending.syncs = self._lockstep(ctx, st, pol,
-                                                          sched_t, sched_w)
-        if pending.events is not None:
-            pending.events[1].record(stream)
+        pending = PendingBatch(profile=prof)
+        for shard, ctx, pol, sched_t, sched_w in shards:
+            with _on(shard.stream):
+                self._launch(shard, ctx, pol, sched_t, sched_w)
+            pending.shards.append(shard)
         pending.staged, self._staged = tuple(self._staged), []
         prof.dispatch_s = time.perf_counter() - t1
         # the one dispatch that claims the build reports it, even when
@@ -590,7 +660,8 @@ class TorchBatchSimulator:
         prof.compile_s = claim_build() if unbuilt else 0.0
         prof.compiled = prof.compile_s > 0
         if obs_trace.enabled():
-            args = {"rows": self.n_rows, "path": self.impl}
+            args = {"rows": self.n_rows, "devices": self.n_shards,
+                    "path": self.impl}
             obs_trace.complete("pack", t0, prof.pack_s, cat="engine",
                                track="engine", args=args)
             obs_trace.complete("compile" if prof.compiled else "dispatch",
@@ -599,47 +670,97 @@ class TorchBatchSimulator:
                                args=dict(args, compiled=prof.compiled))
         return pending
 
+    def _pack(self, rows: np.ndarray, device: torch.device, stream,
+              pol_host: Dict[str, np.ndarray], tab_host: StepTables):
+        """One shard's geometry, state, policy tensors and bound
+        schedules on its device (uploaded on the current stream)."""
+        pol = {k: self._tensor(v, torch.bool if np.asarray(v).dtype == bool
+                               else FLOAT, device)
+               for k, v in self.policy.take_state_rows(pol_host,
+                                                       rows).items()}
+        ctx = self._ctx(rows, device, tab_host)
+        st = self._state0(rows, device)
+        if self._sched is not None:
+            sched_t, sched_w = (self._tensor(x[rows], FLOAT, device)
+                                for x in self._sched)
+        else:
+            sched_t = torch.full((len(rows), 1), BIG_TIME, dtype=FLOAT,
+                                 device=device)
+            sched_w = torch.zeros_like(sched_t)
+        return (ShardRun(device=device, st=st, stream=stream), ctx, pol,
+                sched_t, sched_w)
+
+    def _launch(self, shard: ShardRun, ctx: Ctx, pol, sched_t,
+                sched_w) -> None:
+        """Run one shard: its ``wave_run`` launch, or its lockstep loop,
+        between two CUDA events on its stream (on the card)."""
+        if shard.stream is not None:
+            shard.events = tuple(torch.cuda.Event(enable_timing=True)
+                                 for _ in range(2))
+            shard.events[0].record(shard.stream)
+        if self.impl == "cuda":
+            shard.iters = wave_run_cuda(
+                ctx, shard.st, pol, sched_t, sched_w,
+                mode=kernel_mode(self.policy), dt=self.dt,
+                max_steps=self.max_steps)
+        else:
+            shard.waves, shard.syncs = self._lockstep(ctx, shard.st, pol,
+                                                      sched_t, sched_w)
+        if shard.events is not None:
+            shard.events[1].record(shard.stream)
+
     def fetch(self, pending: PendingBatch,
               rows: Optional[int] = None) -> List[SimResult]:
         """Wait for a dispatched batch and build its results.
 
-        ``run_s`` is the wait left at fetch time; then one device-to-host
-        copy brings back every state field (``transfer_s``), and the
-        results are built on the host (``results_s``) for the first
-        ``rows`` rows (all when ``None``: the streaming service's phantom
-        rows past its requests are checked, not built).  On the card the
-        copy runs on a stream of its own that waits for this batch's end
-        event only: on the launch stream it would also wait for every
-        batch dispatched after this one."""
+        ``run_s`` is the wait left at fetch time (for every shard); then
+        one device-to-host copy a shard brings back every state field
+        (``transfer_s``), the shards' rows are gathered in order and the
+        phantom rows of the split trimmed, and the results are built on
+        the host (``results_s``) for the first ``rows`` rows (all when
+        ``None``: the streaming service's phantom rows past its requests
+        are checked, not built).  On the card each copy runs on a stream
+        of its own that waits for its shard's end event only: on the
+        launch stream it would also wait for every batch dispatched after
+        this one."""
         prof = pending.profile
         t0 = time.perf_counter()
-        if pending.events is not None:
-            pending.events[1].synchronize()
+        for shard in pending.shards:
+            if shard.events is not None:
+                shard.events[1].synchronize()
         t1 = time.perf_counter()
         prof.run_s = t1 - t0
-        if pending.events is not None:
-            copier = torch.cuda.Stream(self.device)
-            copier.wait_event(pending.events[1])
-            with torch.cuda.stream(copier):
-                out = self._transfer(pending)
-        else:
-            out = self._transfer(pending)
+        parts = []
+        for shard in pending.shards:
+            if shard.events is not None:
+                copier = torch.cuda.Stream(shard.device)
+                copier.wait_event(shard.events[1])
+                with torch.cuda.stream(copier):
+                    parts.append(self._transfer(shard))
+            else:
+                parts.append(self._transfer(shard))
+        out = {k: np.concatenate([p[k] for p in parts])[:self.n_rows]
+               for k in parts[0]}
         t2 = time.perf_counter()
         prof.transfer_s = t2 - t1
+        syncs = sum(shard.syncs for shard in pending.shards)
         if self.impl == "cuda":
-            waves, syncs = int(out["iters"].max()), 0
-            prof.kernel_ms = pending.events[0].elapsed_time(pending.events[1])
+            waves = int(out["iters"].max())
+            prof.kernel_ms = max(shard.events[0].elapsed_time(
+                shard.events[1]) for shard in pending.shards)
         else:
-            waves, syncs = pending.waves, pending.syncs
+            waves = max(shard.waves for shard in pending.shards)
         self.stats = RunStats(path=self.impl, waves=waves,
                               row_waves=int(out["steps"].sum()),
-                              host_syncs=syncs + 1, kernel_ms=prof.kernel_ms)
+                              host_syncs=syncs + len(pending.shards),
+                              kernel_ms=prof.kernel_ms)
         pending.staged = ()
         self._check_failures(out)
         results = self._results(out, self.n_rows if rows is None else rows)
         prof.results_s = time.perf_counter() - t2
         if obs_trace.enabled():
-            args = {"rows": self.n_rows, "path": self.impl}
+            args = {"rows": self.n_rows, "devices": self.n_shards,
+                    "path": self.impl}
             for name, start, dur in (("run", t0, prof.run_s),
                                      ("transfer", t1, prof.transfer_s),
                                      ("results", t2, prof.results_s)):
@@ -653,13 +774,13 @@ class TorchBatchSimulator:
         return self.fetch(self.dispatch())
 
     @staticmethod
-    def _transfer(pending: PendingBatch) -> Dict[str, np.ndarray]:
-        """Every fetched state field (and wave_run's loop counts) in one
-        device-to-host copy: the fields' bytes packed into one buffer on
-        the device, then split on the host."""
-        fields = [(name, getattr(pending.st, name)) for name in _FETCHED]
-        if pending.iters is not None:
-            fields.insert(0, ("iters", pending.iters))
+    def _transfer(shard: ShardRun) -> Dict[str, np.ndarray]:
+        """Every fetched state field of a shard (and wave_run's loop
+        counts) in one device-to-host copy: the fields' bytes packed into
+        one buffer on the device, then split on the host."""
+        fields = [(name, getattr(shard.st, name)) for name in _FETCHED]
+        if shard.iters is not None:
+            fields.insert(0, ("iters", shard.iters))
         buf = torch.cat([t.reshape(-1).view(torch.uint8)
                          for _, t in fields]).cpu().numpy()
         out, at = {}, 0

@@ -16,9 +16,6 @@ the per-row policy state (numpy, leading row axis B); the engine moves it
 to the device.  ``redistribute=True`` hands cap setting to the fused
 power step's reclamation / water-fill stage (the oracle rule).
 
-``learned`` declares no mode: on the card it runs on the engine's
-``"step"`` path (one ``power_step`` launch a wave), its MLP in torch.
-
 ``kernel_mode`` names the cap rule the whole-row CUDA loop
 (``wave_run`` in :mod:`repro_torch.kernels.power_step`) runs in place of
 ``caps_fn``/``tick_fn``: a key of ``WAVE_MODES``.  It is read from the
@@ -67,6 +64,14 @@ class TorchPolicy:
     def init_state(self, sim) -> Dict[str, np.ndarray]:
         """Per-row policy state, every leaf with the row axis first."""
         return {}
+
+    def take_state_rows(self, state: Dict[str, np.ndarray],
+                        rows: np.ndarray) -> Dict[str, np.ndarray]:
+        """The state of the batch rows ``rows`` (one shard of a batch
+        split over devices; an index repeated for the split's phantom
+        rows).  Every leaf carries the row axis here; a policy whose
+        state has leaves without it overrides this."""
+        return {k: np.asarray(v)[rows] for k, v in state.items()}
 
     @staticmethod
     def caps_fn(ctx, st, pol) -> torch.Tensor:
@@ -238,7 +243,13 @@ class _TorchXP:
     (:mod:`repro_torch.policies.learned`) calls, on torch tensors: the
     names where torch's spelling or argument types differ from numpy's
     (``maximum`` with a float, ``max`` with ``axis``/``keepdims``,
-    ``stack`` with ``axis``)."""
+    ``stack`` with ``axis``), and the two sums in the order of the
+    kernel's ``learned`` mode (``csrc/power_step.cu``): ``lane_sum`` is
+    :func:`~repro_torch.kernels.power_step.row_sum` over the last axis
+    (the warp's order, in which zero padding lanes add nothing) and
+    ``matmul`` sums each output's products in ascending input order,
+    rounding every product and every sum, where ``@`` would take BLAS's
+    order."""
 
     exp = staticmethod(torch.exp)
     tanh = staticmethod(torch.tanh)
@@ -258,6 +269,23 @@ class _TorchXP:
     def stack(tensors, axis: int = 0) -> torch.Tensor:
         return torch.stack(list(tensors), dim=axis)
 
+    @staticmethod
+    def lane_sum(x: torch.Tensor) -> torch.Tensor:
+        return row_sum(x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+
+    @staticmethod
+    def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``a @ w`` for ``w`` ``(F, H)`` or ``(F,)``: the products of
+        each output summed in ascending ``F``, each rounded on its own."""
+        def term(k):
+            return a[..., k:k + 1] * w[k] if w.dim() == 2 else \
+                a[..., k] * w[k]
+
+        out = term(0)
+        for k in range(1, a.shape[-1]):
+            out = out + term(k)
+        return out
+
 
 @register_torch_policy("learned")
 class TorchLearned(TorchPolicy):
@@ -269,14 +297,16 @@ class TorchLearned(TorchPolicy):
     the event and vector adapters.  Waves land exactly on state
     transitions, so recomputing the split at the top of each wave is the
     event adapter's recompute-on-every-edge.  The weights are shared by
-    every row, so its state leaves carry no row axis.  No
-    ``kernel_mode``: on the card it runs on the ``"step"`` path.
+    every row, so its state leaves carry no row axis.  Its kernel mode,
+    ``"learned"``, runs the same MLP and masked softmax inside the
+    whole-row kernel, in the order the torch namespace spells.
     ``exact=False``: float32 rounding can flip an LUT state against the
     float64 event adapter.
     """
 
     name = "learned"
     exact = False
+    kernel_mode = "learned"
 
     def __init__(self, checkpoint: Optional[str] = None):
         from repro_torch.policies.learned import load_checkpoint
@@ -285,6 +315,11 @@ class TorchLearned(TorchPolicy):
 
     def init_state(self, sim) -> Dict[str, np.ndarray]:
         return {f"mlp_{k}": np.asarray(v) for k, v in self.params.items()}
+
+    def take_state_rows(self, state: Dict[str, np.ndarray],
+                        rows: np.ndarray) -> Dict[str, np.ndarray]:
+        """The weights go whole to every shard."""
+        return state
 
     @staticmethod
     def caps_fn(ctx, st, pol) -> torch.Tensor:

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import concurrent.futures as _futures
 import multiprocessing
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -63,7 +64,8 @@ from .results import SimResult
 from .simulator import Simulator
 
 #: Default device-memory budget for one dispatched bucket, in MiB
-#: (override per engine with ``memory_budget_mb``).  A bucket whose
+#: (override per engine with ``memory_budget_mb`` or the
+#: ``REPRO_DEVICE_BUDGET_MB`` environment variable).  A bucket whose
 #: padded rows exceed it is split into sub-buckets instead of growing
 #: without bound.
 DEFAULT_MEMORY_BUDGET_MB = 1024.0
@@ -85,16 +87,27 @@ def _process_pool(max_workers: Optional[int]
         mp_context=multiprocessing.get_context("spawn"))
 
 
+def device_budget_mb(memory_budget_mb: Optional[float] = None) -> float:
+    """The per-dispatch device-memory budget in MiB: ``memory_budget_mb``
+    when given, else ``REPRO_DEVICE_BUDGET_MB``, else
+    :data:`DEFAULT_MEMORY_BUDGET_MB`."""
+    if memory_budget_mb is None:
+        memory_budget_mb = os.environ.get("REPRO_DEVICE_BUDGET_MB",
+                                          DEFAULT_MEMORY_BUDGET_MB)
+    return float(memory_budget_mb)
+
+
 def plan_chunk_rows(row_bytes: int, budget_bytes: int,
                     align: int = 1) -> int:
     """Rows one dispatch may carry under a device-memory budget.
 
     ``row_bytes`` is the per-row footprint of the bucket's padding
     envelope (:func:`repro_torch.core.batchsim.estimate_row_bytes`);
-    ``align`` is the shard width — the cap is rounded *down* to a
-    multiple of it, but never below one full shard width (a bucket must
-    be dispatchable even when one row's state already exceeds the
-    budget).  The torch executor runs on one card, so its width is 1.
+    ``align`` is the shard width (the devices a batch's rows split
+    over) — the cap is rounded *down* to a multiple of it, so chunks
+    split without phantom rows, but never below one full shard width (a
+    bucket must be dispatchable even when one row's state already
+    exceeds the budget).
     """
     align = max(1, int(align))
     cap = int(budget_bytes) // max(1, int(row_bytes))
@@ -540,7 +553,8 @@ def build_batch_sim(backend: str, scens: List[Scenario],
                     assignments: List[Optional[PowerAssignment]],
                     shared: bool, pad_dims: tuple, *,
                     vector_dt: float = 0.05, device=None,
-                    impl: Optional[str] = None):
+                    impl: Optional[str] = None,
+                    shard_devices: Optional[int] = None):
     """Construct the batch simulator for one planned bucket.
 
     ``scens`` must share a :func:`bucket_key`; ``shared`` selects the
@@ -549,8 +563,9 @@ def build_batch_sim(backend: str, scens: List[Scenario],
     ``"torch"`` — the returned simulator is a
     :class:`~repro_torch.core.batchsim.BatchSimulator` or a
     :class:`~repro_torch.backends.engine.TorchBatchSimulator` on
-    ``device`` with engine path ``impl`` (only the latter has the
-    dispatch/fetch split).
+    ``device`` with engine path ``impl``, its rows split over
+    ``shard_devices`` devices (only the latter has the dispatch/fetch
+    split).
     """
     first = scens[0]
     kwargs = {}
@@ -567,7 +582,8 @@ def build_batch_sim(backend: str, scens: List[Scenario],
 
         cls = TorchBatchSimulator
         policy = get_torch_policy(first.policy, **kwargs)
-        common.update(device=device, impl=impl)
+        common.update(device=device, impl=impl,
+                      shard_devices=shard_devices)
     else:
         from repro_torch.policies.vector import get_vector_policy
 
@@ -614,12 +630,16 @@ class SweepEngine:
     :func:`~repro_torch.backends.engine.resolve_impl`).  Buckets whose
     padded footprint exceeds ``memory_budget_mb`` are split into
     sub-buckets (:func:`plan_chunk_rows` over
-    :func:`~repro_torch.core.batchsim.estimate_row_bytes`).  With
+    :func:`~repro_torch.core.batchsim.estimate_row_bytes`, aligned to
+    the shard width; ``None`` reads ``REPRO_DEVICE_BUDGET_MB``, else
+    :data:`DEFAULT_MEMORY_BUDGET_MB`).  With
     ``pipeline=True`` (default) every torch chunk is dispatched before
     the first is fetched, so the card runs later chunks while the host
     builds earlier chunks' results; ``pipeline=False`` fetches each
-    chunk before packing the next.  Rows run on one card:
-    ``shard_devices`` other than ``None`` or ``1`` raises.
+    chunk before packing the next.  ``shard_devices`` splits each torch
+    chunk's rows over that many of the visible devices (``None``: all of
+    them; :func:`~repro_torch.backends.engine.shard_count`), with results
+    equal to one device's bit for bit.
     """
 
     _ILP_POLICIES = ILP_POLICIES
@@ -637,15 +657,11 @@ class SweepEngine:
         if executor not in ("thread", "process", "serial", "vector",
                             "torch"):
             raise ValueError(f"unknown executor {executor!r}")
-        if shard_devices not in (None, 1):
-            raise ValueError(f"shard_devices={shard_devices!r}: the torch "
-                             f"executor runs every row on one card")
         self.max_workers = max_workers
         self.executor = executor
         self.vector_dt = vector_dt
-        self.memory_budget_mb = float(DEFAULT_MEMORY_BUDGET_MB
-                                      if memory_budget_mb is None
-                                      else memory_budget_mb)
+        self.shard_devices = shard_devices
+        self.memory_budget_mb = device_budget_mb(memory_budget_mb)
         self.pipeline = pipeline
         self.impl = impl
         self.device = None
@@ -740,10 +756,17 @@ class SweepEngine:
                                      "leftovers": len(leftovers)})
 
         profile = None
+        torch_align = 1
         if any(key[0] == "torch" for key in groups):
+            from repro_torch.backends.engine import shard_count
             from repro_torch.backends.profile import SweepProfile
 
             profile = SweepProfile()
+            # The shard width every torch chunk should be a multiple of:
+            # the device count the engine would pick for an unbounded
+            # batch (per chunk it still clamps to the chunk's rows).
+            torch_align = shard_count(self.shard_devices, 1 << 30,
+                                      self.device)
         budget_bytes = int(self.memory_budget_mb * 2 ** 20)
 
         def solve(k: int):
@@ -810,10 +833,12 @@ class SweepEngine:
             if not live:
                 continue
             # Memory-aware envelope: rows per dispatch capped by the
-            # device budget; an oversized bucket becomes several chunks.
+            # device budget, aligned to the shard width; an oversized
+            # bucket becomes several device-aligned chunks.
             itemsize = 4 if backend == "torch" else 8
-            cap = plan_chunk_rows(estimate_row_bytes(pad_dims, itemsize),
-                                  budget_bytes)
+            cap = plan_chunk_rows(
+                estimate_row_bytes(pad_dims, itemsize), budget_bytes,
+                torch_align if backend == "torch" else 1)
             chunks = [live[i:i + cap] for i in range(0, len(live), cap)]
             for ci, batch_idx in enumerate(chunks):
                 t0 = time.perf_counter()
@@ -832,7 +857,8 @@ class SweepEngine:
                                           shared, pad_dims,
                                           vector_dt=self.vector_dt,
                                           device=self.device,
-                                          impl=self.impl)
+                                          impl=self.impl,
+                                          shard_devices=self.shard_devices)
                     if backend == "torch":
                         pending = sim.dispatch()
                         pending.profile.bucket = bucket

@@ -78,7 +78,20 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
 
 // Cap rule of the whole-row loop (the policy's kernel_mode).
-enum Mode { kNominal = 0, kJobCaps = 1, kRedistribute = 2, kHeuristic = 3 };
+enum Mode { kNominal = 0, kJobCaps = 1, kRedistribute = 2, kHeuristic = 3, kLearned = 4 };
+
+// The learned policy's MLP (8 features -> 16 -> 16 -> 1), packed as
+// MLP_LAYOUT in power_step.py: W1 (8, 16), b1, W2 (16, 16), b2, w3, b3.
+constexpr int kMlpIn = 8;
+constexpr int kMlpHidden = 16;
+constexpr int kMlpW1 = 0;
+constexpr int kMlpB1 = kMlpW1 + kMlpIn * kMlpHidden;
+constexpr int kMlpW2 = kMlpB1 + kMlpHidden;
+constexpr int kMlpB2 = kMlpW2 + kMlpHidden * kMlpHidden;
+constexpr int kMlpW3 = kMlpB2 + kMlpHidden;
+constexpr int kMlpB3 = kMlpW3 + kMlpHidden;
+constexpr int kMlpSize = kMlpB3 + 1;  // 433 floats
+constexpr float kNegBig = -1e30f;     // the masked logit (_NEG_BIG)
 
 struct Tables {
   const float* state_p;    // (S, N) shared or (B, S, N) stacked
@@ -110,6 +123,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFullMask, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
   return v;
 }
 
@@ -234,6 +253,88 @@ __device__ __forceinline__ void step_lanes(const Lanes<L>& t, const float* sp, c
   t_comp = warp_min(t_min);
 }
 
+// The learned policy's caps (compute_caps in policies/learned.py, in the
+// order the engine's torch namespace spells it, so the plain path agrees
+// bit for bit): three row sums (running lanes, p_max, the idle draw of the
+// lanes not running) and the running lanes' cap floors, each a warp_sum in
+// row_sum's order; each running lane's 8 features, two tanh layers of 16
+// and the output dot in registers, every sum over inputs in ascending
+// order; then the masked softmax split of the free budget over the running
+// lanes on top of their floors (a warp max, expf, a row_sum-ordered
+// denominator).  Lanes not running park at their floor; a row with no
+// running lane takes the nominal share.  `w` is the packed MLP (kMlp*).
+template <int L>
+__device__ __forceinline__ void learned_caps(const Lanes<L>& t, const float* w,
+                                             const bool (&run)[L], const float (&rh)[L],
+                                             float bound, float n_act, float (&caps)[L]) {
+  float r[L];
+  float n_run = 0.0f, p_sum = 0.0f, idle = 0.0f, floor_sum = 0.0f;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    r[l] = run[l] ? 1.0f : 0.0f;
+    n_run = n_run + r[l];
+    p_sum = p_sum + t.pmax[l];
+    idle = idle + (1.0f - r[l]) * t.idle[l];
+    floor_sum = floor_sum + r[l] * t.floor_w[l];
+  }
+  n_run = warp_sum(n_run);
+  p_sum = warp_sum(p_sum);
+  idle = warp_sum(idle);
+  floor_sum = warp_sum(floor_sum);
+  const float inv_bound = 1.0f / fmaxf(bound, 1e-12f);
+  const float frac_running = n_run / n_act;
+  const float tightness = bound / fmaxf(p_sum, 1e-12f);
+  const float per_bound = n_act * inv_bound;
+  const float idle_frac = idle * inv_bound;
+
+  float masked[L];
+  float m = kNegBig;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    masked[l] = kNegBig;  // a lane not running: its logit is masked
+    if (run[l]) {
+      const float f[kMlpIn] = {r[l],         frac_running,  tightness,
+                               t.pmax[l] * per_bound,       idle_frac,
+                               rh[l] * r[l], t.floor_w[l] * per_bound, 1.0f};
+      float h1[kMlpHidden];
+#pragma unroll
+      for (int j = 0; j < kMlpHidden; ++j) {
+        float acc = f[0] * w[kMlpW1 + j];
+#pragma unroll
+        for (int k = 1; k < kMlpIn; ++k) acc = acc + f[k] * w[kMlpW1 + k * kMlpHidden + j];
+        h1[j] = tanhf(acc + w[kMlpB1 + j]);
+      }
+      float out = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMlpHidden; ++j) {
+        float acc = h1[0] * w[kMlpW2 + j];
+#pragma unroll
+        for (int k = 1; k < kMlpHidden; ++k) acc = acc + h1[k] * w[kMlpW2 + k * kMlpHidden + j];
+        const float term = tanhf(acc + w[kMlpB2 + j]) * w[kMlpW3 + j];
+        out = j == 0 ? term : out + term;
+      }
+      masked[l] = out + w[kMlpB3];
+    }
+    m = fmaxf(m, masked[l]);
+  }
+  m = warp_max(m);
+  float e[L];
+  float e_sum = 0.0f;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    e[l] = expf(masked[l] - m) * r[l];
+    e_sum = e_sum + e[l];
+  }
+  const float denom = fmaxf(warp_sum(e_sum), 1e-30f);
+  const float free_w = fmaxf(bound - idle - floor_sum, 0.0f);
+  const float nominal = bound / n_act;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const float c = run[l] ? t.floor_w[l] + (e[l] / denom) * free_w : t.floor_w[l];
+    caps[l] = n_run > 0.0f ? c : nominal;
+  }
+}
+
 template <int L, bool REDIST>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 power_step_kernel(const float* __restrict__ caps, const float* __restrict__ running,
@@ -347,6 +448,7 @@ struct ReproWaveArgs {
   const float* caps_job;     // (B, J+1) per-job caps (kJobCaps)
   float* cap;                // (B, N) applied caps (kHeuristic), in place
   float* ring;               // (B, depth, N) tick targets (kHeuristic), in place
+  const float* mlp;          // (433,) the packed MLP weights (kLearned)
   long long* ptr;            // (B, N) lane state
   unsigned char* running;
   float* remaining;
@@ -409,8 +511,16 @@ __device__ __forceinline__ void complete_lanes(const bool (&mask)[L], const int 
   __syncwarp();  // the completions are visible to every lane's next read
 }
 
-template <int L>
+// LEARNED: the kLearned cap rule, an instantiation of its own, so the
+// other modes' code (and registers) stay as they were.
+template <int L, bool LEARNED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) wave_run_kernel(ReproWaveArgs a) {
+  // the learned MLP's weights, loaded once a block (every row shares them)
+  __shared__ float mlp[LEARNED ? kMlpSize : 1];
+  if (LEARNED) {
+    for (int i = threadIdx.x; i < kMlpSize; i += blockDim.x) mlp[i] = a.mlp[i];
+    __syncthreads();
+  }
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= a.B) return;
@@ -505,6 +615,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) wave_run_kernel(ReproWave
       else
         caps[l] = share;
     }
+    if (LEARNED) learned_caps<L>(t, mlp, run, rh, bound, n_act, caps);
     if (a.mode == kRedistribute) {
       float eff[L];
       waterfill_lanes<L>(run, t.floor_w, t.pmax, bound - idle_draw<L>(t, run), n, eff);
@@ -605,6 +716,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) wave_run_kernel(ReproWave
 
 inline dim3 grid_for(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
+template <int L>
+void launch_wave_run(const ReproWaveArgs& a, dim3 block, cudaStream_t stream) {
+  if (a.mode == kLearned)
+    wave_run_kernel<L, true><<<grid_for(a.B), block, 0, stream>>>(a);
+  else
+    wave_run_kernel<L, false><<<grid_for(a.B), block, 0, stream>>>(a);
+}
+
 template <bool REDIST>
 void launch_power_step(int slots, cudaStream_t stream, const float* caps, const float* running,
                        const float* remaining, const float* rho, const float* bound,
@@ -679,12 +798,13 @@ int repro_wave_run(const ReproWaveArgs* args, void* stream) {
   const bool mode_ok = (a.mode == kNominal || a.mode == kRedistribute) ||
                        (a.mode == kJobCaps && a.caps_job != nullptr) ||
                        (a.mode == kHeuristic && a.cap != nullptr && a.ring != nullptr &&
-                        a.depth >= 1);
+                        a.depth >= 1) ||
+                       (a.mode == kLearned && a.mlp != nullptr);
   if (!shapes_ok || !mode_ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kWarpsPerBlock * 32);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int slots = (a.N + 31) / 32;
-#define REPRO_LAUNCH(LL) wave_run_kernel<LL><<<grid_for(a.B), block, 0, st>>>(a)
+#define REPRO_LAUNCH(LL) launch_wave_run<LL>(a, block, st)
   if (slots <= 1) REPRO_LAUNCH(1);
   else if (slots <= 2) REPRO_LAUNCH(2);
   else if (slots <= 4) REPRO_LAUNCH(4);

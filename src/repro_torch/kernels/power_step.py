@@ -67,7 +67,13 @@ LAUNCHES: Counter = Counter(power_step=0, waterfill=0, wave_run=0)
 #: Cap rules of the whole-row loop: a policy's ``kernel_mode`` -> the
 #: kernel's code (``Mode`` in ``csrc/power_step.cu``).
 WAVE_MODES = {"nominal": 0, "job_caps": 1, "redistribute": 2,
-              "heuristic": 3}
+              "heuristic": 3, "learned": 4}
+
+#: The learned policy's weights, in the order and shapes the kernel's
+#: ``learned`` mode reads them from one packed float32 buffer (8 features
+#: -> 16 -> 16 -> 1; ``kMlp*`` in ``csrc/power_step.cu``).
+MLP_LAYOUT = (("W1", (8, 16)), ("b1", (16,)), ("W2", (16, 16)),
+              ("b2", (16,)), ("w3", (16,)), ("b3", ()))
 
 
 class StepTables(NamedTuple):
@@ -291,7 +297,8 @@ _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 
 #: The policy tensors each wave mode reads.
 _MODE_TENSORS = {"nominal": (), "job_caps": ("caps_job",),
-                 "redistribute": (), "heuristic": ("cap", "buf")}
+                 "redistribute": (), "heuristic": ("cap", "buf"),
+                 "learned": tuple(f"mlp_{k}" for k, _ in MLP_LAYOUT)}
 
 #: The engine's state tensors the loop updates in place, in the order of
 #: ``ReproWaveArgs``: name -> (dtype, shape kind).
@@ -319,7 +326,7 @@ class _WaveArgs(ctypes.Structure):
            ("deps", _P), ("stride_deps", _LL),
            ("work", _P), ("rho", _P), ("stride_job", _LL),
            ("n_active", _P), ("sched_t", _P), ("sched_w", _P),
-           ("caps_job", _P), ("cap", _P), ("ring", _P)]
+           ("caps_job", _P), ("cap", _P), ("ring", _P), ("mlp", _P)]
         + [(name, _P) for name in _WAVE_STATE]
         + [("iters", _P), ("max_steps", _LL), ("dt", ctypes.c_float)]
         + [(name, ctypes.c_int)
@@ -401,6 +408,15 @@ def _check_wave_inputs(ctx, st, pol, sched_t, sched_w, mode):
         _need(pol["buf"], "buf", torch.float32, (b, depth, n), dev)
         if depth < 1:
             raise ValueError("the heuristic's ring needs depth >= 1")
+    elif mode == "learned":
+        for key, shape in MLP_LAYOUT:
+            t = pol[f"mlp_{key}"]
+            if t.device != dev or t.dtype != torch.float32 or \
+                    tuple(t.shape) != shape:
+                raise ValueError(f"mlp_{key}: the wave_run kernel takes "
+                                 f"float32 {shape} on {dev}, got "
+                                 f"{t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}")
     return b, n, s, k, j1 - 1, d, t_cols, depth
 
 
@@ -424,6 +440,11 @@ def wave_run_cuda(ctx, st, pol, sched_t, sched_w, *, mode: str, dt: float,
     iters = torch.zeros(b, dtype=torch.int64, device=st.ptr.device)
     stride_s, stride_l = _strides(ctx.tab, n, s)
     heur = mode == "heuristic"
+    mlp = None
+    if mode == "learned":
+        # one packed buffer, the layout the kernel reads
+        mlp = torch.cat([pol[f"mlp_{key}"].reshape(-1)
+                         for key, _ in MLP_LAYOUT])
     args = _WaveArgs(
         *(t.data_ptr() for t in ctx.tab), stride_s, stride_l,
         ctx.node_seq.data_ptr(), ctx.node_seq.stride(0),
@@ -434,6 +455,7 @@ def wave_run_cuda(ctx, st, pol, sched_t, sched_w, *, mode: str, dt: float,
         pol["caps_job"].data_ptr() if mode == "job_caps" else None,
         pol["cap"].data_ptr() if heur else None,
         pol["buf"].data_ptr() if heur else None,
+        mlp.data_ptr() if mlp is not None else None,
         *(getattr(st, name).data_ptr() for name in _WAVE_STATE),
         iters.data_ptr(), int(max_steps), float(dt),
         b, n, s, k, j, d, t_cols, depth, WAVE_MODES[mode])

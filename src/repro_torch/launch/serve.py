@@ -213,8 +213,8 @@ def main(argv=None) -> int:
     sweep.add_argument("--policies", nargs="+",
                        default=("equal-share", "oracle"))
     sweep.add_argument("--shard-devices", type=int, default=None,
-                       help="passed to the service, which runs every "
-                            "row on one card (only 1 is accepted)")
+                       help="devices each bucket's rows split over "
+                            "(default: every visible one)")
     sweep.add_argument("--seed", type=int, default=0)
     sweep.add_argument("--timeout", type=float, default=300.0)
     sweep.add_argument("--no-warmup", dest="warmup",

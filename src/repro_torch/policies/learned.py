@@ -23,7 +23,12 @@ bundled checkpoint.  Everything numeric lives in module-level pure
 functions taking an ``xp`` array namespace (``numpy`` here; the torch
 engine's :class:`~repro_torch.backends.policies.TorchLearned` calls the
 same functions through a small torch namespace), so the three backends
-cannot drift.  This module imports only numpy.
+cannot drift.  Every sum over lanes goes through :func:`lane_sum` and
+every product with a weight matrix through ``xp.matmul``: under numpy
+those are ``.sum(-1)`` and ``@``; the torch namespace spells the order
+of the card's kernel (``repro_wave_run``'s ``learned`` mode) in both, so
+the engine's plain path and the kernel agree bit for bit.  This module
+imports only numpy.
 
 >>> import numpy as np
 >>> p = init_params(seed=0)
@@ -122,6 +127,14 @@ def load_checkpoint(path=None) -> Dict[str, np.ndarray]:
 
 
 # ------------------------------------------------- xp-generic policy math
+def lane_sum(xp, x):
+    """Sum over the lane axis (the last): ``xp.lane_sum`` where the
+    namespace gives one (the torch engine's, in the kernel's order),
+    else ``x.sum(axis=-1)``."""
+    hook = getattr(xp, "lane_sum", None)
+    return x.sum(axis=-1) if hook is None else hook(x)
+
+
 def lane_features(xp, running, rho, bound, n_active, p_max, cap_floor,
                   idle_w):
     """Stack the ``(..., N, FEATURE_DIM)`` feature tensor.
@@ -136,11 +149,11 @@ def lane_features(xp, running, rho, bound, n_active, p_max, cap_floor,
     r = running * 1.0
     bound = bound * 1.0
     inv_bound = 1.0 / xp.maximum(bound, 1e-12)
-    n_running = r.sum(axis=-1)
+    n_running = lane_sum(xp, r)
     frac_running = (n_running / n_active)[..., None]
-    tightness = (bound / xp.maximum(p_max.sum(axis=-1), 1e-12))[..., None]
+    tightness = (bound / xp.maximum(lane_sum(xp, p_max), 1e-12))[..., None]
     headroom = p_max * (n_active * inv_bound)[..., None]
-    idle_frac = (((1.0 - r) * idle_w).sum(axis=-1) * inv_bound)[..., None]
+    idle_frac = (lane_sum(xp, (1.0 - r) * idle_w) * inv_bound)[..., None]
     floor_frac = cap_floor * (n_active * inv_bound)[..., None]
     ones = xp.ones_like(r)
     return xp.stack(
@@ -150,9 +163,9 @@ def lane_features(xp, running, rho, bound, n_active, p_max, cap_floor,
 
 def policy_logits(xp, params, feats):
     """MLP forward pass: ``(..., N, F)`` features -> ``(..., N)`` logits."""
-    h = xp.tanh(feats @ params["W1"] + params["b1"])
-    h = xp.tanh(h @ params["W2"] + params["b2"])
-    return h @ params["w3"] + params["b3"]
+    h = xp.tanh(xp.matmul(feats, params["W1"]) + params["b1"])
+    h = xp.tanh(xp.matmul(h, params["W2"]) + params["b2"])
+    return xp.matmul(h, params["w3"]) + params["b3"]
 
 
 def caps_from_logits(xp, logits, running, bound, n_active, p_max,
@@ -165,16 +178,16 @@ def caps_from_logits(xp, logits, running, bound, n_active, p_max,
     to the nominal share P/n, matching ``VectorPolicy.setup``.
     """
     r = running * 1.0
-    idle_draw = ((1.0 - r) * idle_w).sum(axis=-1)
-    free = xp.maximum(bound - idle_draw - (r * cap_floor).sum(axis=-1), 0.0)
+    idle_draw = lane_sum(xp, (1.0 - r) * idle_w)
+    free = xp.maximum(bound - idle_draw - lane_sum(xp, r * cap_floor), 0.0)
     masked = xp.where(running, logits, _NEG_BIG)
     z = masked - xp.max(masked, axis=-1, keepdims=True)
     e = xp.exp(z) * r
-    denom = xp.maximum(e.sum(axis=-1, keepdims=True), 1e-30)
+    denom = xp.maximum(lane_sum(xp, e)[..., None], 1e-30)
     share = e / denom
     caps_run = cap_floor + share * free[..., None]
     caps = xp.where(running, caps_run, cap_floor)
-    any_running = (r.sum(axis=-1) > 0)[..., None]
+    any_running = (lane_sum(xp, r) > 0)[..., None]
     nominal = (bound / n_active)[..., None] * xp.ones_like(r)
     return xp.where(any_running, caps, nominal)
 

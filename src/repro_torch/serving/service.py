@@ -80,9 +80,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.arrays import BIG_EVENT_TIME
 from repro_torch.core.batchsim import estimate_row_bytes
 from repro_torch.core.results import SimResult
-from repro_torch.core.sweep import (DEFAULT_MEMORY_BUDGET_MB, AssignmentCache,
-                                    Scenario, _run_scenario, build_batch_sim,
-                                    bucket_key, next_pow2, plan_backend,
+from repro_torch.core.sweep import (AssignmentCache, Scenario,
+                                    _run_scenario, build_batch_sim,
+                                    bucket_key, device_budget_mb,
+                                    next_pow2, plan_backend,
                                     plan_chunk_rows, scenario_cache_key,
                                     scenario_dims)
 from repro_torch.obs import MetricsRegistry
@@ -230,15 +231,15 @@ class SweepService:
     The ``"torch"`` executor runs on ``device`` (``None``: the card, and
     it raises without one; ``"cpu"`` runs the engine's plain path) with
     engine path ``impl``, as :class:`~repro_torch.core.sweep.SweepEngine`
-    does.  Rows run on one card: ``shard_devices`` other than ``None``
-    or ``1`` raises.
+    does, each bucket's rows split over ``shard_devices`` devices
+    (``None``: every visible one) with capacities aligned to that width.
 
     ``flush_deadline_s`` is the batching SLO knob: the longest a
     request may wait in an open bucket for co-batchable traffic before
     the bucket dispatches partially filled.  ``bucket_rows`` caps the
     bucket capacity; the effective capacity is the smaller of it and
-    the device-memory planner's row budget (``memory_budget_mb``,
-    exactly like the offline engine).
+    the device-memory planner's row budget (``memory_budget_mb`` /
+    ``REPRO_DEVICE_BUDGET_MB``, exactly like the offline engine).
 
     The service is a context manager; on exit it drains in-flight work
     and joins its threads.  All public methods are thread-safe.
@@ -261,16 +262,12 @@ class SweepService:
             raise ValueError("flush_deadline_s must be positive")
         if bucket_rows < 1:
             raise ValueError("bucket_rows must be >= 1")
-        if shard_devices not in (None, 1):
-            raise ValueError(f"shard_devices={shard_devices!r}: the torch "
-                             f"executor runs every row on one card")
         self.executor = executor
         self.flush_deadline_s = float(flush_deadline_s)
         self.bucket_rows = int(bucket_rows)
         self.vector_dt = float(vector_dt)
-        self.memory_budget_mb = float(DEFAULT_MEMORY_BUDGET_MB
-                                      if memory_budget_mb is None
-                                      else memory_budget_mb)
+        self.shard_devices = shard_devices
+        self.memory_budget_mb = device_budget_mb(memory_budget_mb)
         self.result_cache = bool(result_cache)
         self.impl = impl
         self.device = None
@@ -309,6 +306,7 @@ class SweepService:
         self._phase: Optional[str] = None
         self._outstanding = 0
         self._idle = threading.Condition(self._lock)
+        self._torch_align: Optional[int] = None
         self._dims_cache: Dict[tuple, tuple] = {}
         self._texts: Dict[int, tuple] = {}     # graph texts of cache keys
         self._bucket_seq = itertools.count()
@@ -469,13 +467,22 @@ class SweepService:
             if s.bound_schedule else 0
         return base + (minor, sched)
 
+    def _align(self, backend: str) -> int:
+        if backend != "torch":
+            return 1
+        if self._torch_align is None:
+            from repro_torch.backends.engine import shard_count
+
+            self._torch_align = shard_count(self.shard_devices, 1 << 30,
+                                            self.device)
+        return self._torch_align
+
     def _capacity(self, backend: str, pad_dims: tuple) -> int:
-        # the torch engine runs float32 on one card (align 1); the
-        # vector backend float64
+        # the torch engine runs float32, the vector backend float64
         itemsize = 4 if backend == "torch" else 8
         planned = plan_chunk_rows(
             estimate_row_bytes(pad_dims, itemsize),
-            int(self.memory_budget_mb * 2 ** 20))
+            int(self.memory_budget_mb * 2 ** 20), self._align(backend))
         return max(1, min(self.bucket_rows, planned))
 
     def _open_bucket(self, key: tuple, backend: str,
@@ -616,7 +623,8 @@ class SweepService:
                 sim = build_batch_sim(
                     bucket.backend, scens, assignments, False,
                     bucket.pad_dims, vector_dt=self.vector_dt,
-                    device=self.device, impl=self.impl)
+                    device=self.device, impl=self.impl,
+                    shard_devices=self.shard_devices)
                 self._c_phantom.inc(pad)
                 if bucket.backend == "torch":
                     pending = sim.dispatch()

@@ -127,7 +127,8 @@ def test_default_device_is_the_card(cuda_device):
 #: over-budget time, the same jobs completed; the kernel rounds as the
 #: plain path does, so the max abs diff is expected to be 0.0
 WAVE_RTOL = 1e-5
-POLICIES = ("equal-share", "ilp", "ilp-makespan", "oracle", "heuristic")
+POLICIES = ("equal-share", "ilp", "ilp-makespan", "oracle", "heuristic",
+            "learned")
 
 
 def _assignments(policy, items, bounds):
@@ -218,6 +219,65 @@ def test_wave_run_matches_plain_padded(cuda_device, policy):
     _cuda_vs_plain(lambda impl, **k: TorchBatchSimulator.padded(
         items, bounds, policy, bound_schedules=scheds, impl=impl, **kw,
         **k))
+
+
+@pytest.mark.parametrize("n", [3, 40, 70, 200])
+def test_wave_run_learned_mode_is_bitwise_plain(cuda_device, n):
+    """``learned``'s MLP and softmax split inside the kernel equal the
+    plain path bit for bit (max abs diff 0.0) at 1, 2, 4 and 8 lanes a
+    thread, rows spread from a tight bound to a loose one."""
+    graph, specs = is_like(n, "A"), heterogeneous_cluster(n, seed=n)
+    lo = min_feasible_cluster_bound(specs)
+    hi = max_useful_cluster_bound(specs)
+    bounds = list(np.linspace(1.02 * lo, hi, 24))
+    _, diff = _cuda_vs_plain(lambda impl, **k: TorchBatchSimulator(
+        graph, specs, bounds, "learned", impl=impl, **k))
+    assert diff == 0.0
+
+
+@pytest.mark.parametrize("policy", ["equal-share", "heuristic", "learned",
+                                    "ilp"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_sharded_wave_run_matches_one_launch(cuda_device, monkeypatch,
+                                             policy, stacked):
+    """Rows split over four shards of the one card (``visible_devices``
+    patched to cuda:0 four times): one wave_run launch a shard, each on a
+    stream of its own, the rows padded to a multiple of four and trimmed,
+    every result bit-equal to the one-launch run."""
+    from repro_torch.backends import engine
+
+    members = [(g, sp) for _, g, sp, _ in mixed_members(seed=0)]
+    items = [members[k % len(members)] for k in range(10)]
+    if not stacked:
+        items = [(is_like(8, "A"), heterogeneous_cluster(8))] * 10
+    if policy == "ilp":
+        items = [(listing2_graph(), homogeneous_cluster(3))] * 10
+    bounds = [0.3 * sum(s.lut.p_max for s in sp) * (1 + 0.1 * k)
+              for k, (_, sp) in enumerate(items)]
+    kw = _assignments(policy, items, bounds)
+
+    def make(**k):
+        if stacked:
+            return TorchBatchSimulator.padded(items, bounds, policy, **kw,
+                                              **k)
+        return TorchBatchSimulator(items[0][0], items[0][1], bounds,
+                                   policy, **kw, **k)
+
+    want = make().run()
+    monkeypatch.setattr(engine, "visible_devices",
+                        lambda device=None: [torch.device("cuda", 0)] * 4)
+    before = dict(ps.LAUNCHES)
+    sim = make()
+    pending = sim.dispatch()
+    got = sim.fetch(pending)
+    assert {k: ps.LAUNCHES[k] - before[k] for k in before} == \
+        {"power_step": 0, "waterfill": 0, "wave_run": 4}
+    assert sim.n_shards == 4 and pending.profile.devices == 4
+    assert len({id(sh.stream) for sh in pending.shards}) == 4
+    assert [len(sh.st.row_t) for sh in pending.shards] == [3, 3, 3, 3]
+    assert len(got) == len(bounds)
+    _exact(got, want)
+    assert sim.stats.path == "cuda" and sim.stats.kernel_ms > 0
 
 
 def test_wave_run_deadlock_raises_like_plain(cuda_device):
@@ -891,9 +951,9 @@ def test_sweep_on_the_card_matches_plain_and_plans_wide_rows_to_vector(
     assert sweep.records[-1].backend == "vector"
     assert sweep.records[-1].fallback_reason == "lanes(300>256)"
     paths = {b.path for b in sweep.profile.buckets}
-    assert paths == {"cuda", "step"}            # learned: per-wave path
+    assert paths == {"cuda"}                    # learned too
     n_cuda = sum(b.path == "cuda" for b in sweep.profile.buckets)
-    assert got["wave_run"] == n_cuda and got["power_step"] > 0
+    assert got["wave_run"] == n_cuda and got["power_step"] == 0
     for a, b in zip(sweep.records, plain.records):
         assert a.backend == b.backend and a.bucket == b.bucket
         _exact([a.result], [b.result])
@@ -905,7 +965,8 @@ def test_service_on_the_card_matches_the_sweep_engine(cuda_device):
     collector, equals ``SweepEngine(executor="torch")``'s record of the
     same cell on the card (``learned`` at rel 1e-5, vector records at
     1e-12), with the same backend and fallback reason; one wave_run
-    launch a ``"cuda"`` bucket, nothing built after the kernels exist."""
+    launch a bucket (``learned``'s too), nothing built after the kernels
+    exist."""
     from repro_torch.core import (Scenario, SweepEngine, ep_like,
                                   mixed_family)
     from repro_torch.serving import SweepService
@@ -927,10 +988,9 @@ def test_service_on_the_card_matches_the_sweep_engine(cuda_device):
     for rec, off in zip(records, offline.records):
         assert (rec.backend, rec.fallback_reason) == \
             (off.backend, off.fallback_reason)
-        # learned's MLP (torch) and the float64 vector backend (numpy)
-        # sum lanes in an order that depends on the lane padding: the
-        # service pads every bucket, the sweep runs one-graph buckets at
-        # their exact N
+        # learned and the float64 vector backend (numpy) are held apart:
+        # the service pads every bucket, the sweep runs one-graph
+        # buckets at their exact N
         rel = {"learned": 1e-5}.get(rec.scenario.policy,
                                     1e-12 if rec.backend == "vector" else 0)
         if rel:
@@ -942,7 +1002,8 @@ def test_service_on_the_card_matches_the_sweep_engine(cuda_device):
     prof = service.profile
     assert prof.compiles == 0 and prof.recompiles == 0
     n_cuda = sum(b.path == "cuda" for b in prof.buckets)
-    assert got["wave_run"] == n_cuda > 0 and got["power_step"] > 0
+    assert got["wave_run"] == n_cuda == len(prof.buckets)
+    assert got["power_step"] == 0
     assert records[-1].fallback_reason == "lanes(300>256)"
     assert {b.rows for b in prof.buckets} == {16}
 

@@ -1015,11 +1015,44 @@ class TestServeSweepMode:
                            "--policies", "equal-share", "countdown"]) == 1
         assert "NOT CLEAN: 6 fallbacks" in capsys.readouterr().out
 
-    def test_shard_devices_other_than_one_raises(self, capsys):
-        with pytest.raises(ValueError, match="one card"):
-            serve.main(["--trace-corpus", str(SAMPLE_CORPUS), "--device",
-                        "cpu", "--shard-devices", "2"])
-        capsys.readouterr()
+    def test_shard_devices_two_serves_the_records_of_one(self, monkeypatch,
+                                                         capsys):
+        """``--shard-devices 2`` on four (monkeypatched) CPU devices:
+        every bucket's rows split over two devices, and the replay's
+        records equal those of ``--shard-devices 1`` bit for bit."""
+        import torch
+
+        from repro_torch import serving
+        from repro_torch.backends import engine
+
+        monkeypatch.setattr(engine, "visible_devices",
+                            lambda device=None: [torch.device("cpu")] * 4)
+        replay, runs = serving.poisson_replay, {}
+
+        def keep(svc, scenarios, **kw):
+            report = replay(svc, scenarios, **kw)
+            runs[svc.shard_devices] = (report, svc.profile)
+            return report
+
+        monkeypatch.setattr(serving, "poisson_replay", keep)
+        for k in ("1", "2"):
+            assert serve.main(["--trace-corpus", str(SAMPLE_CORPUS),
+                               "--device", "cpu", "--expect-clean",
+                               "--rate-hz", "400", "--repeat", "1",
+                               "--no-result-cache",
+                               "--shard-devices", k]) == 0
+            assert "[serve] clean" in capsys.readouterr().out
+        (one, prof1), (two, prof2) = runs[1], runs[2]
+        assert {b.devices for b in prof1.buckets} == {1}
+        assert {b.devices for b in prof2.buckets} == {2}
+
+        def by_name(report):
+            return sorted(((r.scenario.name, r.scenario.policy,
+                            r.scenario.bound_w), r.result)
+                          for r in report.records)
+
+        assert len(two.records) == len(one.records) == 12
+        assert by_name(two) == by_name(one)
 
     def test_defaults_to_the_card(self, monkeypatch, capsys):
         import torch

@@ -115,13 +115,13 @@ def test_registry_policy_declares_its_kernel_mode(name):
 
 
 def test_every_registered_policy_has_a_mode_and_subclasses_do_not():
-    """Aliases included, every registry key but ``learned`` resolves to a
-    policy with a mode (``learned`` declares none and runs on the
-    per-wave path); a mode is not inherited, so a subclass that changes
-    the cap functions (or the base class) has none."""
+    """Aliases included, every registry key resolves to a policy with a
+    mode of the kernel (``learned`` too); a mode is not inherited, so a
+    subclass that changes the cap functions (or the base class) has
+    none."""
     for key in torch_policies():
         mode = kernel_mode(get_torch_policy(key))
-        assert (mode is None) == (key == "learned"), key
+        assert mode in ps.WAVE_MODES, key
     assert kernel_mode(HalfShare()) is None
     assert kernel_mode(TorchPolicy()) is None
     assert HalfShare.kernel_mode == "nominal"      # the attribute is there
@@ -206,7 +206,7 @@ def test_wave_args_mirror_the_c_struct():
         fields += [(name.strip(), _C_TYPES[kind])
                    for name in m[3].split(",")]
     assert [(n, t) for n, t in ps._WaveArgs._fields_] == fields
-    assert len(fields) == 54
+    assert len(fields) == 55
 
 
 # ------------------------------------------------ the plain path's waves
