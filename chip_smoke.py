@@ -2913,6 +2913,36 @@ FLASH_FAMILIES = {"moe": ((1, 16, 16, PREFILL_SEQ, 128), True),
                   "arctic": ((1, 56, 8, PREFILL_SEQ, 128), True),
                   "chameleon": ((1, 64, 8, PREFILL_SEQ, 128), True),
                   "encoder": ((1, 16, 16, PREFILL_SEQ, 80), False)}
+#: Cases the SIMT flash kernel must match ``flash_attention_plain`` at bit
+#: for bit, twice (``(B, H, Hkv, S, dh)``, dtype, causal, window): fp32 and
+#: bf16 at every head dim it is built for (bf16 at dh 64 and 128 forced off
+#: the tensor cores), causal, full and windowed, GQA groups 1 to 4, half-empty
+#: last query tiles, zamba2-2.7b's and hubert's prefill shapes.
+FLASH_SIMT_CASES = (
+    (FLASH_ZAMBA, "bfloat16", True, 0),
+    (FLASH_FAMILIES["encoder"][0], "bfloat16", False, 0),
+    ((1, 2, 2, 128, 16), "float32", False, 0),
+    ((2, 8, 2, 192, 16), "bfloat16", True, 0),
+    ((1, 2, 2, 256, 32), "float32", True, 0),
+    ((1, 4, 4, 384, 32), "bfloat16", False, 50),
+    ((1, 4, 4, 256, 64), "float32", False, 0),
+    ((1, 4, 4, 256, 64), "bfloat16", True, 0),
+    ((1, 2, 2, 128, 80), "float32", True, 0),
+    ((1, 4, 1, 192, 80), "float32", False, 70),
+    ((1, 8, 2, 320, 80), "bfloat16", True, 100),
+    ((1, 4, 4, 512, 128), "float32", True, 0),
+    ((1, 4, 2, 512, 128), "bfloat16", True, 130),
+    ((1, 4, 2, 256, 256), "float32", True, 0),
+    ((1, 2, 1, 192, 256), "bfloat16", False, 100),
+)
+#: SIMT cases run again on inputs off 16-byte alignment (the kernel then
+#: loads element by element), bit for bit.
+FLASH_SIMT_MISALIGNED = (((1, 8, 2, 320, 80), "bfloat16", True, 100),
+                         ((1, 4, 1, 192, 80), "float32", False, 70))
+#: The SIMT flash kernel's device ms a launch before its redesign (PERF.md,
+#: runs M and AL on an H100 80GB HBM3 at 700 W): zamba2's and hubert's
+#: prefill shapes.
+FLASH_SIMT_PARENT_MS = {"zamba2": 4.247, "encoder": 3.882}
 #: Widths of their norms: d_model of each, the mLSTM cell's d_in.
 RMSNORM_FAMILY_WIDTHS = (1024, 1280, 2048, 7168, 8192)
 
@@ -3026,6 +3056,44 @@ def phase_rmsnorm_kernel(torch, device):
     return worst, times, floor
 
 
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` whose storage starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def plain_chains_sequential(torch, q, k) -> bool:
+    """Whether ``flash_attention_plain``'s two products (cuBLAS, on the
+    card) sum each element as one chain in index order at these shapes:
+    its first kv tile's scores, and a PV product of that tile's shape,
+    against explicit chains.  bf16 inputs only (their products are exact
+    in fp32, so a chain is a multiply and an add a step); fp32 answers
+    True.  cuBLAS picks its kernel by shape, and where it splits a chain
+    (split-K) the plain loop leaves the SIMT kernel's contract."""
+    if q.dtype != torch.bfloat16:
+        return True
+    b, h, sq, dh = q.shape
+    hkv = k.shape[1]
+    qf = q.reshape(b, hkv, h // hkv * sq, dh).float()
+    kb = k[:, :, :64].float()
+    got = qf @ kb.transpose(-1, -2)
+    want = torch.zeros_like(got)
+    for d in range(dh):
+        want = want + qf[..., d:d + 1] * kb[..., d].unsqueeze(-2)
+    if not torch.equal(got, want):
+        return False
+    p = torch.rand(got.shape, device=q.device).bfloat16().float()
+    vb = k[:, :, :64].float()
+    got = p @ vb
+    want = torch.zeros_like(got)
+    for j in range(64):
+        want = want + p[..., j:j + 1] * vb[..., j, :].unsqueeze(-2)
+    return bool(torch.equal(got, want))
+
+
 def _causal_pairs(s: int, causal: bool, window: int) -> int:
     """Query/key pairs the mask keeps (positions 0..s-1 on both)."""
     import numpy as np
@@ -3049,8 +3117,16 @@ def phase_flash_kernel(torch, device):
     hubert's non-causal dh=80).  Each case runs the variant
     ``kernel_variant`` names (the table's, or the one a case forces: the
     tensor-core kernel at dh=80, which zamba2's path does not take), read
-    back from the launch counters.  Times at both prefill shapes for both
-    kernels, with SDPA as the library yardstick (timed here only)."""
+    back from the launch counters.  Every case the SIMT kernel runs, and
+    :data:`FLASH_SIMT_CASES` forced onto it, must give the same output
+    twice, equal to the plain loop's bit for bit unless cuBLAS splits the
+    plain loop's chains at that shape (:func:`plain_chains_sequential`;
+    such cases are listed and held to ``LM_TOL``), and on inputs off
+    16-byte alignment (:data:`FLASH_SIMT_MISALIGNED`).  Times at both
+    prefill shapes for both kernels, with SDPA as the library yardstick
+    (timed here only); the SIMT kernel's beside its FFMA floor, and at
+    zamba2's and hubert's dh 80 its times before the redesign
+    (:data:`FLASH_SIMT_PARENT_MS`)."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=device)
@@ -3069,13 +3145,20 @@ def phase_flash_kernel(torch, device):
              ((1, 4, 2, 1024, 80), "bfloat16", True, 200, "tc")]
     cases += [(shape, "bfloat16", causal, 0, None)
               for shape, causal in FLASH_FAMILIES.values()]
-    worst, variants = {}, {}
+    cases += [(shape, dtype, causal, window, "simt")
+              for shape, dtype, causal, window in FLASH_SIMT_CASES]
+    cases += [(shape, dtype, causal, window, "simt misaligned")
+              for shape, dtype, causal, window in FLASH_SIMT_MISALIGNED]
+    worst, variants, simt, split = {}, {}, 0, []
     inputs = {}
-    for (b, h, hkv, s, dh), dtype, causal, window, force in cases:
+    for (b, h, hkv, s, dh), dtype, causal, window, tag in cases:
         td = getattr(torch, dtype)
+        force = tag and tag.split()[0]
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(td)
                    for shape in ((b, h, s, dh), (b, hkv, s, dh),
                                  (b, hkv, s, dh)))
+        if tag == "simt misaligned":
+            q, k, v = (_misaligned(torch, t) for t in (q, k, v))
         before = dict(fa.LAUNCHES)
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                       variant=force)
@@ -3084,7 +3167,7 @@ def phase_flash_kernel(torch, device):
                                   impl="plain")
         err = _max_abs(torch, got, want)
         name = (f"{b}x{h}/{hkv}x{s}x{dh} {dtype} causal={causal} "
-                f"w={window}" + (f" {force}" if force else ""))
+                f"w={window}" + (f" {tag}" if tag else ""))
         variant = "tc" if ran["flash_attention_tc"] else "simt"
         expect = fa.kernel_variant(td, dh, force)
         require(ran["flash_attention"] == 1 and variant == expect,
@@ -3092,10 +3175,26 @@ def phase_flash_kernel(torch, device):
                 f"launch")
         require(_within(torch, got, want, dtype),
                 f"flash {name}: kernel vs plain max abs err {err:.3g}")
+        if variant == "simt":
+            # the SIMT kernel runs the plain loop's arithmetic in its order,
+            # bit for bit wherever cuBLAS sums the plain loop's products
+            # as single chains
+            again = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, variant=force)
+            require(bool(torch.equal(again, got)),
+                    f"flash {name}: the SIMT kernel differs from its rerun")
+            if torch.equal(got, want):
+                simt += 1
+            else:
+                require(not plain_chains_sequential(torch, q, k),
+                        f"flash {name}: the SIMT kernel is not bit for bit "
+                        f"plain's (max abs err {err:.3g})")
+                split.append(name)
         worst[name] = err
         variants[name] = variant
-        if (b, h, hkv, s, dh) in (FLASH_MAIN, FLASH_ZAMBA) or \
-                ((b, h, hkv, s, dh), causal) in FLASH_FAMILIES.values():
+        if force is None and ((b, h, hkv, s, dh) in (FLASH_MAIN, FLASH_ZAMBA)
+                              or ((b, h, hkv, s, dh), causal)
+                              in FLASH_FAMILIES.values()):
             inputs[(b, h, hkv, s, dh)] = (q, k, v)
     torch.cuda.synchronize()
     times = _flash_times(torch, FLASH_MAIN, *inputs.pop(FLASH_MAIN))
@@ -3104,8 +3203,11 @@ def phase_flash_kernel(torch, device):
                                          *inputs.pop(shape))
                 for tag, (shape, causal) in FLASH_FAMILIES.items()}
     emit("flash_kernel", tol=LM_TOL, max_abs_err=worst, variants=variants,
-         shape=FLASH_MAIN, **times, shape_zamba2=FLASH_ZAMBA, zamba2=zamba,
-         families=families)
+         simt_bitwise_cases=simt, simt_plain_split_chain=split,
+         shape=FLASH_MAIN, **times,
+         shape_zamba2=FLASH_ZAMBA, zamba2=zamba, families=families,
+         simt_parent_ms=FLASH_SIMT_PARENT_MS,
+         simt_parent_source="PERF.md, runs M and AL")
     return max(worst.values()), times, zamba, families
 
 
@@ -3139,7 +3241,18 @@ def _flash_times(torch, shape, q, k, v):
     times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
     times["tflops"] = flops / (times["ms"] * 1e9)
     times["tc_tflops"] = flops / (times["tc_ms"] * 1e9)
+    times["ffma_floor_ms"] = _simt_floor_ms(shape, True)
     return times
+
+
+def _simt_floor_ms(shape, causal):
+    """The SIMT kernel's floor on the fp32 pipes: 2 dh fmaf for each pair
+    of the tiles it computes, one lane instruction each."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, hkv, s, dh = shape
+    pairs = fa.simt_tile_pairs(s, s, dh, h, b, causal, 0)
+    return 1e3 * 2 * dh * pairs / FP32_LANE_OPS_PER_S
 
 
 def _flash_routed_times(torch, shape, causal, q, k, v):
@@ -3163,6 +3276,8 @@ def _flash_routed_times(torch, shape, causal, q, k, v):
     nbytes = 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
     times.update(bound(nbytes, flops, BF16_TENSOR_OPS_PER_S))
     times["tflops"] = flops / (times["ms"] * 1e9)
+    if times["variant"] == "simt":
+        times["ffma_floor_ms"] = _simt_floor_ms(shape, causal)
     return times
 
 
@@ -5012,7 +5127,7 @@ def lm_phases(torch, device, counters, smi):
          "families": {tag: {"shape": list(FLASH_FAMILIES[tag][0]), **{
              k: t[k] for k in ("variant", "causal", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
-                               "tflops")}}
+                               "tflops", "ffma_floor_ms") if k in t}}
                       for tag, t in fa_families.items()}},
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -5027,7 +5142,8 @@ def lm_phases(torch, device, counters, smi):
 
 #: What the kernels line keeps of each flash timing.
 FLASH_KEYS = ("variant", "ms", "tc_ms", "simt_ms", "plain_ms", "call_ms",
-              "bound_ms", "bound_by", "library_ms", "tflops", "tc_tflops")
+              "bound_ms", "bound_by", "library_ms", "tflops", "tc_tflops",
+              "ffma_floor_ms")
 
 
 def _counters():

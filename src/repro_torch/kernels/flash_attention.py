@@ -27,7 +27,27 @@ launches or raises.  Two kernels compute the function:
   run in another order than the plain loop's, so its output differs from
   it by a flipped bf16 rounding here and there.
 * ``"simt"`` (``csrc/flash_attention.cu``) takes fp32 and bf16 at every
-  head dim of :data:`HEAD_DIMS`, and matches the plain loop bit for bit.
+  head dim of :data:`HEAD_DIMS`, and matches the plain loop bit for bit
+  on the card.  Its contract is the plain loop's order: each score one
+  fmaf chain over ``d = 0 .. dh-1`` from 0, then times the scale, then
+  masked; kv tiles of exactly :data:`BLOCK_KV` keys; ``p = exp(s -
+  m_new)``, ``corr = exp(m - m_new)``; the row sum of p as a fixed tree
+  (keys ``(j, j+32)``, then pairs 16, 8, 4, 2, 1 apart); ``l = l * corr
+  + sum``; p rounded to v's type; pv one fmaf chain over the tile's keys
+  in order; ``acc = acc * corr + pv``.  A block takes
+  :func:`simt_block_q` query rows: up to dh 80, 128 threads of 8 rows by
+  8 keys (lane ``j`` of 8 holds keys ``j, j+8, ..., j+56``); above, 256
+  threads of 4 rows by 4 keys (16 lanes).  So the pairs ``(j, j+32)``
+  and the next levels of the row-sum tree are a thread's own adds, the
+  rest shuffles among a row's lanes, and the softmax stays in registers.
+  Q and K sit d-major in shared memory, so up to dh 80 each d costs a
+  thread four 16-byte loads for 64 fmaf.  Blocks run the heaviest query tiles first
+  (:func:`simt_block_tile`), and skip the kv tiles
+  :func:`simt_kv_tiles` leaves out.  Bit-equality keeps it off
+  the tensor cores, so its floor is the fp32 pipes': ``2 dh`` fmaf for
+  each (query, key) pair of the tiles it computes
+  (:func:`simt_tile_pairs`), ~1.3-1.5 ms at zamba2-2.7b's prefill shape
+  against the tensor cores' 0.087 ms.
 
 The table :data:`KERNEL_VARIANTS` picks one by ``(dtype, dh)``: the
 tensor-core kernel for bf16 at dh 64 and 128 (llama3-8b and the other
@@ -158,6 +178,57 @@ def tc_kv_tiles(q0: int, rows: int, sk: int, causal: bool, window: int,
     if window > 0 and q0 - window + 1 > 0:
         lo = (q0 - window + 1) // block
     return range(lo, max(lo, hi))
+
+
+def simt_block_q(dh: int) -> int:
+    """Query rows a block of the SIMT kernel takes at head dim ``dh``:
+    128 up to dh 80 (8 rows a thread), 64 above (4 a thread).  Mirrors
+    ``Tile<DH>::kBQ`` in ``csrc/flash_attention.cu``."""
+    return 128 if dh <= 80 else 64
+
+
+def simt_block_tile(block: int, sq: int, dh: int, heads: int,
+                    batch: int) -> tuple:
+    """``(q0, rows, head, batch index)`` of the SIMT kernel's block
+    ``block`` (its 1-D grid has ``ceil(sq / simt_block_q(dh)) * heads *
+    batch`` blocks): the heaviest query tiles first, every head and batch
+    of one tile before the next lighter tile.  ``rows`` is below the
+    block's size only in a half-empty last tile.  Mirrors the block
+    decode of ``flash_kernel`` in ``csrc/flash_attention.cu``."""
+    bq = simt_block_q(dh)
+    hb = heads * batch
+    tile = -(-sq // bq) - 1 - block // hb
+    q0 = tile * bq
+    return q0, min(bq, sq - q0), (block % hb) % heads, (block % hb) // heads
+
+
+def simt_kv_tiles(q0: int, rows: int, sk: int, causal: bool,
+                  window: int) -> list:
+    """First keys of the :data:`BLOCK_KV`-key tiles the SIMT kernel runs
+    for query rows ``q0 .. q0+rows-1``: it stops at the first tile past
+    the last row under ``causal`` and skips tiles the window drops for
+    every row.  Mirrors the kv loop of ``flash_kernel``."""
+    kept = []
+    for k0 in range(0, sk, BLOCK_KV):
+        if causal and k0 > q0 + rows - 1:
+            break
+        if window > 0 and q0 - (k0 + BLOCK_KV - 1) >= window:
+            continue
+        kept.append(k0)
+    return kept
+
+
+def simt_tile_pairs(sq: int, sk: int, dh: int, heads: int, batch: int,
+                    causal: bool, window: int) -> int:
+    """(query row, key) pairs whose scores the SIMT kernel computes:
+    ``simt_block_q(dh)`` rows (a half-empty tile's zero rows too) by
+    :data:`BLOCK_KV` keys for each kv tile each block runs.  Each pair
+    takes ``2 dh`` fmaf (``dh`` for its score, ``dh`` for its share of
+    pv), the kernel's floor on the fp32 pipes."""
+    bq = simt_block_q(dh)
+    tiles = sum(len(simt_kv_tiles(q0, min(bq, sq - q0), sk, causal, window))
+                for q0 in range(0, sq, bq))
+    return tiles * bq * BLOCK_KV * heads * batch
 
 
 def tc_bwd_q_tiles(k0: int, keys: int, sq: int, causal: bool,
